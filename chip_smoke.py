@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
+runs five phases, each printing one JSON line; any failure raises and the
+script exits non-zero without the result line:
+
+1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
+               registers and spills of every kernel (``-Xptxas -v``).
+2. kernels  -- each kernel against its plain PyTorch version on the card,
+               bit-exact, at the path's widths (N = 16,384 and 8,192), int16
+               and int32 timers, k = 1 and 5, negative timers, timers at the
+               dtype max, dead rows, and N not a multiple of 128; timed with
+               CUDA events over repeated launches.
+3. boot     -- fault-free broadcast boot to convergence at N = 16,384, lean
+               state, int16 timers, all three kernel flags on, random mode.
+4. churn    -- BASELINE config 3: N = 8,192, 64 ticks, 5 %/tick churn over
+               ticks 1-32, full state (latency, identity views, int32
+               timers), all flags on, random mode.
+5. parity   -- the port on the card (kernels) against the port on the CPU
+               (plain versions) at N = 512, 24 churn ticks, deterministic and
+               random mode: every integer and bool leaf and metric equal,
+               ``latency`` with NaN positions equal and rtol 1e-5.
+
+Launch counts are reset just before the boot and the churn runs and read
+just after: each kernel of the path must have launched. The last lines are
+the card's name and power limit, the ``{"kernels": [...]}`` summary, and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# The card's peaks for the bounds. Memory: 3.35 TB/s (H100 SXM data sheet).
+# The kernels do 32-bit integer operations: 64 INT32 lanes per SM (Hopper
+# whitepaper) x 132 SMs x 1.98 GHz, the boost clock behind the data sheet's
+# 67 TFLOP/s float32 rate (128 lanes x 2 FLOPs an FMA at the same clock).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# 32-bit integer operations a function needs per cell, counted from its
+# definition (the per-cell body of the kernel), as (cell of an alive row,
+# cell of a dead row). fp_idv: two mix32 (3 xor-shifts + 2 multiplies each,
+# 8 ops) + 2 xors to key the hash, the state > 0 test, the masked add and the
+# count add = 21. fp_hash: test, masked add, count add = 3. suspicion: count
+# (test + add) and has_cand (== KNOWN, j != i, or) = 5 on every cell; an alive
+# row adds timer <= thr, == WAITING_FOR_PING, == WAITING_FOR_INDIRECT_PING,
+# the argmin compare and the flag or = 10. oldest_k: == KNOWN, j != i,
+# timer != max, two ands and the compare against the k-th key = 6 on an alive
+# row; a dead row has no eligible cell.
+OPS_PER_CELL = {"fused_fp_idv": (21, 21), "fused_fp_hash": (3, 3),
+                "fused_suspicion": (10, 5), "fused_oldest_k": (6, 0)}
+ROOT = Path(__file__).resolve().parent
+
+KERNEL_META = {
+    "fused_fp_idv": ("kaboodle_tpu_torch/csrc/fused_fp.cu", "kaboodle_tpu/ops/fused_fp.py:129"),
+    "fused_fp_hash": ("kaboodle_tpu_torch/csrc/fused_fp.cu", "kaboodle_tpu/ops/fused_fp.py:139"),
+    "fused_suspicion": ("kaboodle_tpu_torch/csrc/fused_suspicion.cu",
+                        "kaboodle_tpu/ops/fused_suspicion.py:119"),
+    "fused_oldest_k": ("kaboodle_tpu_torch/csrc/fused_oldest_k.cu",
+                       "kaboodle_tpu/ops/fused_oldest_k.py:119"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """Registers and spills per compiled entry point, from ``-Xptxas -v``."""
+    rows, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            rows.append({"fn": fn, "spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["fn"] == fn:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
+# ----------------------------------------------------------------- kernels
+
+
+def time_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_diff(got, want) -> tuple[int, int]:
+    """(mismatching elements, max |difference|) over tuples of outputs."""
+    import torch
+
+    mism, err = 0, 0
+    for g, w in zip(got, want):
+        g64, w64 = g.to(torch.int64), w.to(torch.int64)
+        mism += int((g64 != w64).sum())
+        err = max(err, int((g64 - w64).abs().max()) if g64.numel() else 0)
+    return mism, err
+
+
+def kernel_inputs(n: int, timer_dtype, gen):
+    import torch
+
+    dev = "cuda"
+    state = torch.randint(0, 4, (n, n), generator=gen, device=dev, dtype=torch.int8)
+    timer = torch.randint(-12, 40, (n, n), generator=gen, device=dev, dtype=torch.int32)
+    tmax = torch.iinfo(timer_dtype).max
+    sentinel = torch.rand((n, n), generator=gen, device=dev) < 0.05
+    timer = torch.where(sentinel, tmax, timer).to(timer_dtype)  # timers at the dtype max
+    alive = torch.rand((n,), generator=gen, device=dev) < 0.8  # dead rows
+    idv = torch.randint(-2**31, 2**31 - 1, (n, n), generator=gen, device=dev, dtype=torch.int32)
+    return state, timer, alive, idv
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version; the main-path shapes are timed."""
+    import torch
+
+    from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
+    from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k, fused_oldest_k_plain
+    from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion, fused_suspicion_plain
+    from kaboodle_tpu_torch.ops.hashing import peer_record_hash
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases, rows = [], {}
+    # (kernel, n, timer dtype, k, timed as the main path's shape)
+    plan = [("fused_fp_idv", n, torch.int32, 0, n == 8192) for n in (8192, 16384, 1000)]
+    plan += [("fused_fp_hash", n, torch.int16, 0, n == 16384) for n in (16384, 8192, 1000)]
+    plan += [("fused_suspicion", n, dt, 0, n == 16384 and dt == torch.int16)
+             for n in (16384, 8192, 4112, 1000) for dt in (torch.int16, torch.int32)]
+    plan += [("fused_oldest_k", n, dt, k, n == 16384 and dt == torch.int16 and k == 5)
+             for n in (16384, 8192, 1000) for dt in (torch.int16, torch.int32) for k in (1, 5)]
+    for name, n, dt, k, timed in plan:
+        state, timer, alive, idv = kernel_inputs(n, dt, gen)
+        tb = timer.element_size()
+        thr = 9
+        live = int(alive.sum())
+        if name == "fused_fp_idv":
+            run = lambda: fused_fp_count(state, idv)  # noqa: E731
+            plain = lambda: fused_fp_count_plain(state, idv)  # noqa: E731
+            nbytes = n * n * 5 + 8 * n
+        elif name == "fused_fp_hash":
+            rec = peer_record_hash(torch.arange(n, device="cuda"), idv[0])
+            run = lambda: fused_fp_count(state, rec)  # noqa: E731
+            plain = lambda: fused_fp_count_plain(state, rec)  # noqa: E731
+            nbytes = n * n + 4 * n + 8 * n
+        elif name == "fused_suspicion":
+            run = lambda: fused_suspicion(state, timer, alive, thr)  # noqa: E731
+            plain = lambda: fused_suspicion_plain(state, timer, alive, thr)  # noqa: E731
+            # Every output that reads a timer is gated on alive[i]: a dead
+            # row needs its state row only.
+            nbytes = n * n + live * n * tb + n + 11 * n
+        else:
+            run = lambda: fused_oldest_k(state, timer, alive, k)  # noqa: E731
+            plain = lambda: fused_oldest_k_plain(state, timer, alive, k)  # noqa: E731
+            # Dead rows have no eligible cell and are not read.
+            nbytes = live * n * (1 + tb) + n + 5 * n * k
+        per_live, per_dead = OPS_PER_CELL[name]
+        ops = (live * per_live + (n - live) * per_dead) * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        mism, err = max_abs_diff(got, want)
+        case = {"kernel": name, "n": n, "timer": str(dt).replace("torch.", ""), "k": k,
+                "mismatches": mism, "max_abs_err": err}
+        if timed:
+            reps = 20
+            row = {
+                "shape": case,
+                "kernel_ms": time_ms(run, reps),
+                "plain_ms": time_ms(plain, 3),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_ms": bytes_ms,
+                "ops_ms": ops_ms,
+            }
+            rows[name] = row
+        cases.append(case)
+        if mism:
+            raise AssertionError(f"{name} disagrees with its plain version: {case}")
+        del state, timer, alive, idv
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "tolerance": "bit-exact", "cases": cases,
+          "timed": rows})
+    return {"rows": rows, "cases": cases}
+
+
+# ----------------------------------------------------------------- main path
+
+
+def counts() -> dict:
+    from kaboodle_tpu_torch.ops import _cuda
+
+    return dict(_cuda.launches)
+
+
+def all_kernels_cfg():
+    """The default configuration with all three kernel flags on."""
+    from kaboodle_tpu_torch.config import SwimConfig
+
+    return SwimConfig(use_pallas_fp=True, use_pallas_oldest_k=True, use_pallas_suspicion=True)
+
+
+def boot_case():
+    """The boot run as ``(make, run)``: ``make()`` gives a fresh N=16,384 lean
+    state with int16 timers, ``run(state)`` boots it to convergence."""
+    import torch
+
+    from kaboodle_tpu_torch.sim import init_state, run_until_converged
+
+    cfg = all_kernels_cfg()
+
+    def make():
+        return init_state(16384, seed=0, track_latency=False, instant_identity=True,
+                          timer_dtype=torch.int16)
+
+    def run(st):
+        return run_until_converged(st, cfg, max_ticks=64)
+
+    return make, run
+
+
+def churn_case():
+    """The churn run as ``(scenario, make, run)``: BASELINE config 3, full
+    state, faulty ``simulate`` over the scenario's inputs."""
+    from kaboodle_tpu_torch.sim import baseline_scenario, init_state, simulate
+
+    cfg = all_kernels_cfg()
+    sc = baseline_scenario(3)
+    inputs = sc.build()
+
+    def make():
+        return init_state(sc.n, seed=0, alive=sc.initial_alive())
+
+    def run(st):
+        return simulate(st, inputs, cfg, faulty=True)
+
+    return sc, make, run
+
+
+def phase_boot() -> dict:
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    make, run = boot_case()
+    st = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    final, ticks, conv = run(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    out = {"phase": "boot", "n": 16384, "ticks_run": ticks, "converged": conv,
+           "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    emit(out)
+    if not conv:
+        raise AssertionError("the N=16,384 broadcast boot did not converge")
+    for k in ("fused_fp_hash", "fused_suspicion", "fused_oldest_k"):
+        if launches[k] <= 0:
+            raise AssertionError(f"boot never launched {k}")
+    return out
+
+
+def phase_churn() -> dict:
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    sc, make, run = churn_case()
+    st = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    final, metrics = run(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    T = sc.ticks
+    at = {}
+    for t in (0, T // 2, T - 1):
+        at[str(t)] = {
+            "messages_delivered": int(metrics.messages_delivered[t]),
+            "converged": bool(metrics.converged[t]),
+            "mean_membership": float(metrics.mean_membership[t]),
+        }
+    out = {"phase": "churn", "n": sc.n, "ticks": T, "wall_s": wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "metrics_at_tick": at, "launches": launches}
+    emit(out)
+    if not np.array_equal(final.alive.cpu().numpy(), sc.alive_trajectory()[-1]):
+        raise AssertionError("final alive mask differs from the scenario's trajectory")
+    if not bool(torch.isfinite(metrics.mean_membership).all()):
+        raise AssertionError("non-finite mean_membership")
+    for k in ("fused_fp_idv", "fused_suspicion", "fused_oldest_k"):
+        if launches[k] <= 0:
+            raise AssertionError(f"churn never launched {k}")
+    return out
+
+
+def phase_parity() -> dict:
+    import numpy as np
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.sim import baseline_scenario, init_state, make_tick_fn
+    from kaboodle_tpu_torch.sim.state import metrics_to_numpy, state_to_numpy
+
+    out = {"phase": "parity", "n": 512, "ticks": 24}
+    for det in (True, False):
+        cfg = SwimConfig(deterministic=det, use_pallas_fp=True, use_pallas_oldest_k=True,
+                         use_pallas_suspicion=True)
+        sc = baseline_scenario(3, n=512, ticks=24, seed=1)
+        tick = make_tick_fn(cfg, faulty=True)
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            sides[dev] = (init_state(512, seed=2, alive=sc.initial_alive(), device=dev),
+                          sc.build(dev))
+        worst_lat = 0.0
+        for t in range(sc.ticks):
+            res = {}
+            for dev, (st, inp) in sides.items():
+                st, m = tick(st, inp.at(t))
+                sides[dev] = (st, inp)
+                res[dev] = (state_to_numpy(st), metrics_to_numpy(m))
+            for part in (0, 1):
+                for k, g in res["cuda"][part].items():
+                    w = res["cpu"][part][k]
+                    if g is None or w is None:
+                        if (g is None) != (w is None):
+                            raise AssertionError(f"tick {t}: {k} present on one side only")
+                        continue
+                    if k == "latency":
+                        if not np.array_equal(np.isnan(g), np.isnan(w)):
+                            raise AssertionError(f"tick {t}: latency NaN positions differ")
+                        np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=f"tick {t} latency")
+                        fin = ~np.isnan(w)
+                        if fin.any():
+                            worst_lat = max(worst_lat, float(np.abs(g[fin] - w[fin]).max()))
+                    elif not np.array_equal(g, w):
+                        raise AssertionError(f"tick {t}: {k} differs between card and CPU")
+        out["deterministic" if det else "random"] = {
+            "equal_ticks": sc.ticks, "latency_max_abs_diff": worst_lat,
+            "final_converged": bool(res["cuda"][1]["converged"]),
+        }
+    emit(out)
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "kaboodle_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from kaboodle_tpu_torch.ops import _cuda
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _cuda.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "card": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "ptxas": {name: ptxas_summary(log) for name, log in _cuda.build_logs.items()}})
+
+    kern = phase_kernels()
+    boot = phase_boot()
+    churn = phase_churn()
+    phase_parity()
+
+    summary = []
+    for name, (source, replaces) in KERNEL_META.items():
+        row = kern["rows"][name]
+        worst = max((c["max_abs_err"] for c in kern["cases"] if c["kernel"] == name), default=0)
+        mism = sum(c["mismatches"] for c in kern["cases"] if c["kernel"] == name)
+        summary.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": boot["launches"][name] + churn["launches"][name],
+            "launches_boot": boot["launches"][name], "launches_churn": churn["launches"][name],
+            "mismatches": mism, "max_abs_err": worst,
+            "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"],
+        })
+    print(card, flush=True)
+    emit({"kernels": summary})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,81 @@
+"""Fused oldest-k ping-target candidates: a CUDA kernel and its plain version.
+
+Per row i: the k lexicographically smallest ``(timer, j)`` over the cells
+``alive[i] & state == KNOWN & j != i & timer != max(timer dtype)``, as
+``(idx int32 [N, k], valid bool [N, k])``, with ``idx`` = n - 1 in a slot
+with no candidate. A timer at its dtype's max is the ineligibility
+sentinel of the jnp formulation (ops/sampling.py), so it is never a
+candidate here either.
+
+The kernel (``csrc/fused_oldest_k.cu``) replaces the Pallas kernel
+``kaboodle_tpu/ops/fused_oldest_k.py::fused_oldest_k`` (pallas_call at
+fused_oldest_k.py:119); its bound and design are in the source's head
+comment. It takes ``1 <= k <= 8``. The wrapper takes the plain version
+only for CPU tensors; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kaboodle_tpu_torch.ops import _cuda
+from kaboodle_tpu_torch.spec import KNOWN
+
+MAX_K = 8
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def fused_oldest_k_plain(state, timer, alive, k: int):
+    """The plain PyTorch version: k rounds of (timer, j) lex-min over the row."""
+    n = state.shape[-1]
+    T = timer.to(torch.int32)
+    col = torch.arange(n, dtype=torch.int32, device=state.device)
+    tmax = torch.iinfo(timer.dtype).max
+    elig = alive[:, None] & (state == KNOWN) & (col[None, :] != col[:, None]) & (T != tmax)
+    i32 = torch.iinfo(torch.int32)
+    prev_t = torch.full((n,), i32.min, dtype=torch.int32, device=state.device)
+    prev_i = torch.full((n,), -1, dtype=torch.int32, device=state.device)
+    out_i, out_v = [], []
+    for _ in range(k):
+        after = (T > prev_t[:, None]) | ((T == prev_t[:, None]) & (col[None, :] > prev_i[:, None]))
+        cand = elig & after
+        t_r = torch.where(cand, T, i32.max).amin(dim=-1)
+        i_r = torch.where(cand & (T == t_r[:, None]), col[None, :], n).amin(dim=-1)
+        out_i.append(i_r.clamp(max=n - 1))
+        out_v.append(t_r != i32.max)
+        prev_t, prev_i = t_r, i_r
+    return torch.stack(out_i, dim=-1).to(torch.int32), torch.stack(out_v, dim=-1)
+
+
+def fused_oldest_k(state: torch.Tensor, timer: torch.Tensor, alive: torch.Tensor, k: int):
+    """The k oldest eligible candidates per row (see the module docstring).
+
+    ``state`` int8 ``[N, N]``, ``timer`` int16/int32 ``[N, N]``, ``alive``
+    bool ``[N]``. Returns ``(idx int32 [N, k], valid bool [N, k])``."""
+    n = state.shape[-1]
+    _cuda.require(state.dtype == torch.int8 and state.shape == (n, n), "state: int8 [N, N]")
+    _cuda.require(timer.dtype in (torch.int16, torch.int32) and timer.shape == (n, n),
+                  "timer: int16/int32 [N, N]")
+    _cuda.require(alive.dtype == torch.bool and alive.shape == (n,), "alive: bool [N]")
+    _cuda.require(timer.device == state.device == alive.device, "inputs on one device")
+    _cuda.require(k >= 1, "k >= 1")
+    _cuda.require(all(x.is_contiguous() for x in (state, timer, alive)), "contiguous inputs")
+    if state.device.type == "cpu":
+        return fused_oldest_k_plain(state, timer, alive, k)
+    _cuda.require(state.device.type == "cuda", f"unsupported device {state.device}")
+    _cuda.require(k <= MAX_K, f"the CUDA kernel takes k <= {MAX_K}, got {k}")
+    lib = _cuda.library("fused_oldest_k", kb_fused_oldest_k=_ARGTYPES)
+    dev = state.device
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    rc = lib.kb_fused_oldest_k(
+        state.data_ptr(), timer.data_ptr(), timer.element_size(), alive.data_ptr(), k,
+        idx.data_ptr(), valid.data_ptr(), n, _cuda.vec_ok(n, state, timer),
+        _cuda.stream_handle(dev),
+    )
+    _cuda.check(lib, rc, "fused_oldest_k")
+    _cuda.launches["fused_oldest_k"] += 1
+    return idx, valid

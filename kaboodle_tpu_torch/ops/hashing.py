@@ -1,0 +1,94 @@
+"""Commutative membership fingerprint: the convergence hash, on 32-bit words.
+
+    fingerprint[i] = sum_{j : member[i,j]} mix32(mix32(j ^ 0x9E3779B9) ^ id[j])  (mod 2^32)
+
+PyTorch has no usable unsigned 32-bit arithmetic (``torch.uint32`` lacks
+``add``, ``>>`` and ``sum`` on the CPU), so every uint32 quantity of the
+port -- identities, identity views, fingerprints, PRNG keys -- is carried
+as an ``int32`` tensor holding the same 32 bits. Arithmetic on them runs
+here in ``int64`` on the unsigned value (``as_u32``) and is folded back to
+the int32 bit pattern by ``wrap32``. Sums mod 2^32 do not depend on the
+order of the terms, so any reduction tree gives the same bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9
+
+
+def as_u32(x: torch.Tensor) -> torch.Tensor:
+    """The unsigned value (int64, 0..2^32-1) of a 32-bit word tensor."""
+    return x.to(torch.int64) & MASK32
+
+
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 tensor holding ``x mod 2^32`` as a bit pattern."""
+    y = x & MASK32
+    return (y - ((y >> 31) << 32)).to(torch.int32)
+
+
+def u32_to_i32(v: int) -> int:
+    """A Python uint32 value as the int32 with the same bits."""
+    v &= MASK32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for unsigned int64 ``x``, with no int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def _mix32_u(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """splitmix32 finalizer; bijective on 32-bit words. Returns int32 bits."""
+    return wrap32(_mix32_u(as_u32(x)))
+
+
+def peer_record_hash(peer_ids: torch.Tensor, identities: torch.Tensor) -> torch.Tensor:
+    """32-bit hash of (peer id, identity) records, broadcasting. int32 bits."""
+    h = _mix32_u(as_u32(peer_ids) ^ GOLDEN)
+    return wrap32(_mix32_u(h ^ as_u32(identities)))
+
+
+def wrap_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum of 32-bit words mod 2^32 along ``dim``. int32 bits."""
+    return wrap32(x.sum(dim=dim, dtype=torch.int64))
+
+
+def membership_fingerprint(member: torch.Tensor, identities: torch.Tensor) -> torch.Tensor:
+    """Commutative fingerprint of each row of the bool ``[N, N]`` membership.
+
+    ``identities`` is the global ``[N]`` identity word per peer or the
+    ``[N, N]`` per-row identity views. Returns int32 bits ``[N]``.
+    """
+    pid = torch.arange(member.shape[-1], dtype=torch.int64, device=member.device)
+    h = peer_record_hash(pid if identities.dim() == 1 else pid[None, :], identities)
+    zero = torch.zeros((), dtype=torch.int32, device=member.device)
+    return wrap_sum(torch.where(member, h if identities.dim() == 2 else h[None, :], zero))
+
+
+def fingerprint_agreement(alive: torch.Tensor, fp: torch.Tensor):
+    """Global fingerprint agreement over the alive rows.
+
+    The minimum and maximum are taken over the UNSIGNED values, as the
+    reference does on uint32. Returns ``(converged bool [], fp_min int32
+    bits [], fp_max int32 bits [], n_alive int32 [])``.
+    """
+    u = as_u32(fp)
+    fp_min = torch.where(alive, u, MASK32).amin()
+    fp_max = torch.where(alive, u, 0).amax()
+    n_alive = alive.sum(dtype=torch.int32)
+    converged = (fp_min == fp_max) & (n_alive > 0)
+    return converged, wrap32(fp_min), wrap32(fp_max), n_alive

@@ -1,0 +1,676 @@
+"""The executable tick: the full and the fused program, and the dispatch between them.
+
+The port of ``kaboodle_tpu/phasegraph/exec.py::make_tick_fn``. Round
+structure per tick t (reference kaboodle.rs:746-786):
+
+  A  active phase: Join broadcasts, suspicion handling (escalation to
+     indirect ping / removals), random ping, manual pings.
+  B  broadcast delivery: Join inserts + join-response KnownPeers.
+  1  call 1: Pings + PingRequests delivered.
+  2  call 2: direct Acks, proxy Pings, join responses; gossip inserts (Q6).
+  3  call 3: the suspects' Acks at the proxies.
+  4  call 4: forwarded Acks.
+  G  anti-entropy: each peer resolves <= 1 KnownPeersRequest (D2).
+
+Two programs run a tick. ``_rest`` is the full program: one pass per
+gated phase. ``_fast`` is the fused program: on a tick with no Join
+broadcast and no suspicion activity every delivery mask derives from
+``[N]`` vectors, so the update is one composed write. The dispatch takes
+``_fast`` exactly when the predicate ``any_a2 | any_join`` is false
+(``any_join`` only exists with Join broadcasts on) -- the predicate the
+JAX package's planner derives, hard-coded here (``dispatch_pred_terms``)
+and pinned against the planner by the tests.
+
+Where the JAX tick has ``lax.cond``, this tick has a Python ``if`` on a
+device value; each gated branch is an identity when its gate is false, so
+the two are the same function. Tensors are never updated in place: a
+phase's result is a new tensor, as in the JAX program.
+
+The three fused kernels sit where the JAX tick calls its Pallas kernels:
+``fused_suspicion`` in the prologue of every tick
+(``cfg.use_pallas_suspicion``), ``fused_fp_count`` behind every
+``fp_count`` (``cfg.use_pallas_fp``) and ``fused_oldest_k`` in the full
+program's ping-target draw (``cfg.use_pallas_oldest_k``). Unlike the JAX
+package there is no ``N % 128`` guard: a flag that is on means the kernel
+(on a CUDA tensor) or its plain version (on a CPU tensor), for any N.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from kaboodle_tpu_torch.config import SwimConfig
+from kaboodle_tpu_torch.ops import threefry
+from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
+from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k
+from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion
+from kaboodle_tpu_torch.ops.hashing import (
+    as_u32,
+    fingerprint_agreement,
+    peer_record_hash,
+    wrap32,
+    wrap_sum,
+)
+from kaboodle_tpu_torch.ops.sampling import (
+    bernoulli_matrix,
+    broadcast_reply_prob,
+    choose_among_candidates,
+    choose_k_members,
+    choose_one_of_oldest_k,
+)
+from kaboodle_tpu_torch.phasegraph import rng as pg_rng
+from kaboodle_tpu_torch.sim.state import MeshState, TickInputs, TickMetrics
+from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
+
+INF = torch.iinfo(torch.int32).max
+_NAN = float("nan")
+
+
+def dispatch_pred_terms(cfg: SwimConfig) -> tuple[str, ...]:
+    """The activity terms whose disjunction sends a tick to the full program."""
+    return ("any_a2", "any_join") if cfg.join_broadcast_enabled else ("any_a2",)
+
+
+def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean OR-matmul ``(a @ b) > 0`` with an int32 accumulator.
+
+    An int8 product in PyTorch accumulates in int8 and wraps, so the CPU
+    multiplies int32 and the card takes ``torch._int_mm`` (int8 in, int32
+    out). Its operands must have every side a multiple of 8 and more than
+    16 rows; other shapes are zero-padded to that."""
+    if a.device.type != "cuda":
+        return (a.to(torch.int32) @ b.to(torch.int32)) > 0
+    m, k = a.shape
+    n = b.shape[1]
+    if m > 16 and m % 8 == 0 and k % 8 == 0 and n % 8 == 0:
+        # bool and int8 share their bytes: reinterpret, do not copy.
+        return torch._int_mm(a.contiguous().view(torch.int8),
+                             b.contiguous().view(torch.int8)) > 0
+
+    def up(x):
+        return max(32, -(-x // 8) * 8)
+
+    ap = torch.zeros((up(m), up(k)), dtype=torch.int8, device=a.device)
+    bp = torch.zeros((up(k), up(n)), dtype=torch.int8, device=a.device)
+    ap[:m, :k] = a
+    bp[:k, :n] = b
+    return torch._int_mm(ap, bp)[:m, :n] > 0
+
+
+def _scatter_or(dst: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, val: torch.Tensor):
+    """``dst[rows, cols] |= val`` with -1-safe (clipped) indices.
+
+    Only the True updates are written, so duplicate indices cannot let a
+    False overwrite a True."""
+    rows = rows.expand_as(val)[val].clamp(min=0).long()
+    cols = cols.expand_as(val)[val].clamp(min=0).long()
+    out = dst.clone()
+    out[rows, cols] = True
+    return out
+
+
+def _col_mark(idx, tgt, val):
+    """mark[d, s] = (tgt[s] == d) & val[s] -- sender s's datagram lands at its target."""
+    return (idx[:, None] == tgt[None, :]) & val[None, :]
+
+
+def _row_mark(idx, tgt, val):
+    """mark[s, d] = (tgt[s] == d) & val[s] -- row s marks its own target."""
+    return (idx[None, :] == tgt[:, None]) & val[:, None]
+
+
+def _add32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """uint32 wraparound ``a + b`` of two 32-bit word tensors."""
+    return wrap32(a.to(torch.int64) + b.to(torch.int64))
+
+
+def _drop_gate(ok: torch.Tensor, key: threefry.Key, rate: torch.Tensor) -> torch.Tensor:
+    """``ok & (uniform(key, (n, n)) >= rate)``, drawn in row chunks."""
+    out = ok.clone()
+    shape = tuple(ok.shape)
+    for r0, r1 in threefry.row_chunks(*shape):
+        u = threefry.bits_to_uniform(threefry.random_bits(key, shape, ok.device, (r0, r1)))
+        out[r0:r1] &= u >= rate
+    return out
+
+
+def make_tick_fn(
+    cfg: SwimConfig,
+    faulty: bool = True,
+    program: str | None = None,
+) -> Callable[[MeshState, TickInputs], tuple[MeshState, TickMetrics]]:
+    """Build the tick function for a protocol config.
+
+    ``faulty=False`` leaves out churn, partitions and drops (the fault-free
+    build). ``program`` selects the program: ``None`` (the default) the
+    per-tick dispatch, ``"full"`` the full program alone, ``"fused"`` the
+    fused program alone with no dispatch guard -- the caller then owns the
+    precondition that no tick has a Join broadcast or suspicion activity.
+    """
+    if program not in (None, "full", "fused"):
+        raise ValueError(f"unknown program {program!r}")
+    det = cfg.deterministic
+    pred_terms = dispatch_pred_terms(cfg)
+    gossip_backdate = cfg.max_peer_share_age_ticks if cfg.backdate_gossip_inserts else 0
+    timeout = cfg.ping_timeout_ticks
+
+    def tick(st: MeshState, inp: TickInputs) -> tuple[MeshState, TickMetrics]:
+        n = st.n
+        dev = st.device
+        t = int(st.tick)
+        key = tuple(int(w) & threefry.M32 for w in st.key.tolist())
+        key_proxy, key_ping, key_bern, key_drop = pg_rng.tick_draw_keys(key, t)
+
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        eye = idx[:, None] == idx[None, :]
+        S, T = st.state, st.timer
+        lat, idv = st.latency, st.id_view
+        has_lat = lat is not None
+        has_idv = idv is not None
+        alive, never_b, last_b = st.alive, st.never_broadcast, st.last_broadcast
+        id_row = st.identity[None, :]
+        zero32 = torch.zeros((), dtype=torch.int32, device=dev)
+
+        # ---- churn: silent kill (Q8) + revive-with-reset --------------------
+        if faulty:
+            alive = (alive & ~inp.kill) | inp.revive
+            rv = inp.revive
+            rvc = rv[:, None]
+            S = torch.where(rvc, torch.where(eye, KNOWN, 0).to(torch.int8), S)
+            T = torch.where(rvc, torch.where(eye, t, 0).to(T.dtype), T)
+            if has_lat:
+                lat = torch.where(rvc, _NAN, lat)
+            if has_idv:
+                idv = torch.where(rvc, torch.where(eye, id_row, zero32), idv)
+            never_b = never_b | rv
+        else:
+            rv = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+        # ---- delivery gate: ok[s, d] ----------------------------------------
+        if faulty:
+            ok = alive[:, None] & alive[None, :]
+            ok = ok & (inp.partition[:, None] == inp.partition[None, :])
+            if inp.drop_ok is not None:
+                ok = ok & inp.drop_ok
+            elif bool(inp.drop_rate > 0):
+                ok = _drop_gate(ok, key_drop, inp.drop_rate)
+
+            def ok_edge(s, d):
+                return ok[s.clamp(min=0).long(), d.clamp(min=0).long()]
+
+            def ok_outer():
+                return ok
+        else:
+
+            def ok_edge(s, d):
+                return alive[s.clamp(min=0).long()] & alive[d.clamp(min=0).long()]
+
+            def ok_outer():
+                return alive[:, None] & alive[None, :]
+
+        # ---- Phase-A row stats on the pre-tick snapshot ---------------------
+        S0, T0 = S, T
+        thr = t - timeout
+        if cfg.use_pallas_suspicion:
+            row_count0, jstar_pre, has_timed, has_cand_pre, wfip_any = fused_suspicion(
+                S, T, alive, thr
+            )
+        else:
+            aged0 = alive[:, None] & (T0.to(torch.int32) <= thr)
+            row_count0 = (S > 0).sum(dim=-1, dtype=torch.int32)
+            has_timed = (aged0 & (S0 == WAITING_FOR_PING)).any(dim=-1)
+            wfip_any = (aged0 & (S0 == WAITING_FOR_INDIRECT_PING)).any(dim=-1)
+            jstar_pre = has_cand_pre = None
+        any_a2 = wfip_any.any() | has_timed.any()
+
+        rec_hash = peer_record_hash(idx, st.identity)
+        rec_row = rec_hash[None, :]
+        rec64 = as_u32(rec_row)
+        pid_row = idx.to(torch.int64)[None, :]
+
+        def fp_count(S_now, idv_now):
+            """Row fingerprints + membership counts at a point in the tick."""
+            ident = idv_now if has_idv else rec_hash
+            if cfg.use_pallas_fp:
+                return fused_fp_count(S_now, ident)
+            return fused_fp_count_plain(S_now, ident)
+
+        def apply_marks(S, T, lat, idv, mark):
+            """Q1 mark pass for one delivery wave (mark[d, s]: s reached d)."""
+            if has_lat:
+                waiting = (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING)
+                sample = (t - T.to(torch.int32)).to(torch.float32)
+                upd = torch.where(torch.isnan(lat), sample, 0.8 * sample + 0.2 * lat)
+                lat = torch.where(mark & waiting, upd, lat)
+            if has_idv:
+                idv = torch.where(mark, id_row, idv)
+            S = torch.where(mark, KNOWN, S)
+            T = torch.where(mark, t, T)
+            return S, T, lat, idv
+
+        def apply_marks_delta(S, T, lat, idv, mark):
+            """apply_marks + the exact (fp, count) delta the wave causes."""
+            member_b = S > 0
+            newm = mark & ~member_b
+            if has_idv:
+                old = torch.where(member_b, as_u32(peer_record_hash(pid_row, idv)), 0)
+                dfp = wrap32(torch.where(mark, rec64 - old, 0).sum(dim=-1))
+            else:
+                dfp = wrap_sum(torch.where(newm, rec_row, zero32))
+            dn = newm.sum(dim=-1, dtype=torch.int32)
+            S, T, lat, idv = apply_marks(S, T, lat, idv, mark)
+            return S, T, lat, idv, dfp, dn
+
+        # ================= A. Active phase =================================
+        # A1: maybe_broadcast_join (kaboodle.rs:228-251).
+        if cfg.join_broadcast_enabled:
+            lonely = row_count0 <= 1
+            join_b = alive & (
+                never_b | (lonely & ((t - last_b) >= cfg.rebroadcast_interval_ticks))
+            )
+            last_b = torch.where(join_b, t, last_b)
+            never_b = never_b & ~join_b
+            any_join = join_b.any()
+        else:
+            join_b = torch.zeros((n,), dtype=torch.bool, device=dev)
+            any_join = torch.zeros((), dtype=torch.bool, device=dev)
+
+        # A4: manual pings; self-pings and out-of-range targets drop (D8).
+        man_tgt = torch.where(
+            alive & (inp.manual_target != idx) & (inp.manual_target < n),
+            inp.manual_target, -1,
+        ).to(torch.int32)
+
+        def _anti_entropy(S, T, lat, idv, partner, del_kpr, del_rep, fp_g, n_g):
+            """Call-G apply (kaboodle.rs:707-740), shared by both programs."""
+            if not bool(del_kpr.any()):
+                return S, T, lat, idv, fp_g, n_g
+            mark_g = _col_mark(idx, partner, del_kpr)  # partner marks requester
+            S, T, lat, idv = apply_marks(S, T, lat, idv, mark_g)
+            # The reply share is taken before the requester-marks-partner write.
+            S_share, T_share = S, T
+            mark_rep = _row_mark(idx, partner, del_rep)  # requester marks partner
+            S = torch.where(mark_rep, KNOWN, S)
+            T = torch.where(mark_rep, t, T)
+            if bool(del_rep.any()):
+                share_f = (S_share == KNOWN) & ~eye & (
+                    (t - T_share.to(torch.int32)) < cfg.max_peer_share_age_ticks
+                )
+                srow = share_f[partner.clamp(min=0).long()]
+                rep_ins = del_rep[:, None] & srow & ~eye & ~(S > 0)
+                S = torch.where(rep_ins, KNOWN, S)
+                T = torch.where(rep_ins, t - gossip_backdate, T)
+                if has_idv:
+                    idv = torch.where(rep_ins, id_row, idv)
+            fp_f, n_f = fp_count(S, idv)
+            return S, T, lat, idv, fp_f, n_f
+
+        def _ae_phase01(fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt):
+            """Anti-entropy candidate phases 0-1 (take_sync_request order)."""
+            m0 = (st.kpr_partner[None, :] == idx[:, None]) & alive[:, None] & ~rv[:, None]
+            match0 = m0 & (st.kpr_fp[None, :] != fp_g[:, None]) & (
+                n_g[:, None] <= st.kpr_n[None, :]
+            )
+            prio0 = torch.where(match0, idx[None, :], INF).amin(dim=-1)
+            peer0 = prio0  # sender == candidate peer for KPR candidates
+            pt = ping_tgt.clamp(min=0).long()
+            mt = man_tgt.clamp(min=0).long()
+            m_d = del_ack & (fp1[pt] != fp_g) & (n_g <= n1[pt])
+            m_m = del_ack_man & (fp1[mt] != fp_g) & (n_g <= n1[mt])
+            prio_d = torch.where(m_d, n + ping_tgt, INF)
+            prio_m = torch.where(m_m, n + man_tgt, INF)
+            prio1 = torch.minimum(prio_d, prio_m)
+            peer1 = torch.where(prio_d <= prio_m, ping_tgt, man_tgt)
+            return prio0, peer0, prio1, peer1
+
+        def _finish(S, T, lat, idv, kpr_partner_new, fp_g, n_g, fp_f, n_f, msgs):
+            """Metrics + next-state assembly, shared by both programs."""
+            converged, fpa_min, fpa_max, n_alive = fingerprint_agreement(alive, fp_f)
+            agree = (alive & (fp_f == fpa_min)).sum(dtype=torch.int32)
+            denom = n_alive.clamp(min=1)
+            new_state = MeshState(
+                state=S, timer=T, alive=alive, identity=st.identity,
+                never_broadcast=never_b, last_broadcast=last_b,
+                kpr_partner=kpr_partner_new.to(torch.int32), kpr_fp=fp_g, kpr_n=n_g,
+                tick=st.tick + 1, key=st.key, latency=lat, id_view=idv,
+            )
+            metrics = TickMetrics(
+                messages_delivered=msgs.to(torch.int32),
+                converged=converged,
+                agree_fraction=agree.to(torch.float32) / denom,
+                mean_membership=torch.where(alive, n_f, 0).to(torch.float32).sum() / denom,
+                fingerprint_min=fpa_min,
+                fingerprint_max=fpa_max,
+            )
+            return new_state, metrics
+
+        def _rest():
+            """The full program's tail: A2 suspicion handling onward."""
+            S_, T_, lat_, idv_ = S, T, lat, idv
+            if cfg.use_pallas_suspicion:
+                jstar, has_cand = jstar_pre, has_cand_pre
+            else:
+                timed_wfp = alive[:, None] & (S0 == WAITING_FOR_PING) & (
+                    T0.to(torch.int32) <= thr
+                )
+                tsel = torch.where(timed_wfp, T0, torch.iinfo(T0.dtype).max)
+                min_t = tsel.amin(dim=-1)
+                jstar_mask = timed_wfp & (T0 == min_t[:, None])
+                jstar = torch.where(jstar_mask, idx[None, :], INF).amin(dim=-1)
+                jstar = torch.where(has_timed, jstar, -1).to(torch.int32)
+                has_cand = ((S0 == KNOWN) & ~eye).any(dim=-1)
+            escalate = has_timed & has_cand
+            insta_remove = has_timed & ~has_cand  # no proxies -> drop (:599-605)
+            jstar_cell = idx[None, :] == jstar[:, None]
+            any_rem = bool(wfip_any.any() | insta_remove.any())
+            escalating = bool(escalate.any())
+            joining = bool(any_join)
+
+            # A2: handle_suspected_peers on the pre-tick snapshot.
+            k_prox = min(cfg.num_indirect_ping_peers, n)
+            if escalating:
+                known_cand = (S0 == KNOWN) & ~eye
+                proxies, proxies_valid = choose_k_members(
+                    known_cand, cfg.num_indirect_ping_peers, key_proxy, det
+                )
+            else:
+                proxies = torch.zeros((n, k_prox), dtype=torch.int32, device=dev)
+                proxies_valid = torch.zeros((n, k_prox), dtype=torch.bool, device=dev)
+            proxies_valid = proxies_valid & escalate[:, None]
+
+            def _a2_rem():
+                r = alive[:, None] & (S0 == WAITING_FOR_INDIRECT_PING) & (
+                    T0.to(torch.int32) <= thr
+                )
+                return r | (insta_remove[:, None] & jstar_cell)
+
+            if bool(any_a2):
+                rem = _a2_rem()
+                S_ = torch.where(rem, 0, S_)
+                if has_lat:
+                    lat_ = torch.where(rem, _NAN, lat_)
+                esc_cell = escalate[:, None] & jstar_cell
+                S_ = torch.where(esc_cell, WAITING_FOR_INDIRECT_PING, S_)
+                T_ = torch.where(esc_cell, t, T_)
+
+            # A3: ping_random_peer (kaboodle.rs:655-703) on the post-A2 state.
+            if cfg.use_pallas_oldest_k:
+                kk = 1 if det else cfg.num_candidate_target_peers
+                cand_idx, cand_valid = fused_oldest_k(S_, T_, alive, kk)
+                ping_tgt = choose_among_candidates(cand_idx, cand_valid, key_ping, det)
+            else:
+                elig = alive[:, None] & (S_ == KNOWN) & ~eye
+                ping_tgt = choose_one_of_oldest_k(
+                    T_, elig, cfg.num_candidate_target_peers, key_ping, det,
+                    method=cfg.oldest_k_method,
+                )
+            has_ping = ping_tgt >= 0
+            tgt_cell = _row_mark(idx, ping_tgt, has_ping)
+            S_ = torch.where(tgt_cell, WAITING_FOR_PING, S_)
+            T_ = torch.where(tgt_cell, t, T_)
+
+            member_a = S_ > 0
+            row_count_a = member_a.sum(dim=-1, dtype=torch.int32)
+
+            # ============= B. Broadcast delivery ============================
+            if cfg.join_broadcast_enabled:
+                # [receiver, origin]; row-major again after the transpose, so
+                # every plane written through it stays contiguous.
+                Jm = (join_b[None, :] & ok_outer().T & ~eye).contiguous()
+                is_new_ro = Jm & ~member_a
+                S_ = torch.where(Jm, KNOWN, S_)
+                T_ = torch.where(Jm, t, T_)
+                if has_idv:
+                    idv_ = torch.where(Jm, id_row, idv_)
+            else:
+                Jm = torch.zeros((n, n), dtype=torch.bool, device=dev)
+                is_new_ro = Jm
+
+            if not cfg.faithful_failed_broadcast and any_rem:
+                # Failed(j) from i delivered at r (r != j) removes j; a
+                # same-tick Join(j) wins only against origins i < j.
+                rem = _a2_rem()
+                rem_gt = rem & (idx[:, None] > idx[None, :])
+                ok_t = ok_outer().T
+                fail_del = ~eye & torch.where(
+                    Jm, _bool_matmul(ok_t, rem_gt), _bool_matmul(ok_t, rem)
+                )
+                S_ = torch.where(fail_del, 0, S_)
+                if has_lat:
+                    lat_ = torch.where(fail_del, _NAN, lat_)
+
+            # Join responses (kaboodle.rs:333-392) and the gossip union.
+            reply_del = gossip = None
+            if cfg.join_broadcast_enabled and joining:
+                n_after = row_count_a[:, None] + torch.cumsum(is_new_ro, dim=1, dtype=torch.int32)
+                reply_p = broadcast_reply_prob(n_after)
+                bern = bernoulli_matrix(key_bern, reply_p, (n, n), det)
+                reply = is_new_ro & bern  # [r, o]
+                reply_del = reply & ok_outer()
+                if bool(reply_del.any()):
+                    share_base = member_a
+                    if cfg.max_share_peers and n > cfg.max_share_peers:
+                        # D5: cap to the lowest-index members of the map.
+                        within_cap = (
+                            torch.cumsum(member_a, dim=1, dtype=torch.int32)
+                            <= cfg.max_share_peers
+                        )
+                        share_base = member_a & within_cap
+                    term1 = _bool_matmul(reply_del.T, share_base)  # [o, j]
+                    term2 = _bool_matmul(reply_del.T, Jm)
+                    tri = idx[None, :] <= idx[:, None]  # j <= o
+                    gossip = term1 | (term2 & tri)
+
+            # ============= Call 1: Pings + PingRequests =====================
+            ok_ping = has_ping & ok_edge(idx, ping_tgt)
+            ok_man = (man_tgt >= 0) & ok_edge(idx, man_tgt)
+            del_pr = proxies_valid & ok_edge(idx[:, None], proxies)  # [N, k]
+            mark1 = _col_mark(idx, ping_tgt, ok_ping) | _col_mark(idx, man_tgt, ok_man)
+            if escalating:
+                for kk in range(proxies.shape[-1]):
+                    mark1 = mark1 | _col_mark(idx, proxies[:, kk], del_pr[:, kk])
+            fp0, n0 = fp_count(S_, idv_)
+            S_, T_, lat_, idv_, dfp1, dn1 = apply_marks_delta(S_, T_, lat_, idv_, mark1)
+            fp1, n1 = _add32(fp0, dfp1), n0 + dn1
+
+            del_ack = ok_ping & ok_edge(ping_tgt, idx)  # tgt -> pinger
+            del_ack_man = ok_man & ok_edge(man_tgt, idx)
+            del_pping = del_pr & ok_edge(proxies, jstar[:, None])  # proxy -> suspect
+
+            # ============= Call 2: Acks, proxy Pings, join responses ========
+            mark2 = _row_mark(idx, ping_tgt, del_ack) | _row_mark(idx, man_tgt, del_ack_man)
+            if reply_del is not None:
+                mark2 = mark2 | reply_del.T.contiguous()  # joiner marks join-responder
+            if escalating:  # suspect marks proxy
+                mark2 = _scatter_or(mark2, jstar[:, None], proxies, del_pping)
+            S_, T_, lat_, idv_, dfp2, dn2 = apply_marks_delta(S_, T_, lat_, idv_, mark2)
+
+            if gossip is not None:  # gossip-learned peers, back-dated (Q6)
+                gossip_new = gossip & ~(S_ > 0)
+                S_ = torch.where(gossip_new, KNOWN, S_)
+                T_ = torch.where(gossip_new, t - gossip_backdate, T_)
+                if has_idv:
+                    idv_ = torch.where(gossip_new, id_row, idv_)
+
+            if escalating:
+                fp2, n2 = fp_count(S_, idv_)
+            else:
+                fp2 = torch.zeros((n,), dtype=torch.int32, device=dev)
+                n2 = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+            del_pack = del_pping & ok_edge(jstar[:, None], proxies)  # [N, k]
+            pc = proxies.clamp(min=0).long()
+            pop_hit = ((ping_tgt[pc] == jstar[:, None]) & del_ack[pc]) | (
+                (man_tgt[pc] == jstar[:, None]) & del_ack_man[pc]
+            )
+            fwd_c = del_pr & pop_hit  # proxy forwards its call-2 ack payload (fp1)
+            del_fwd_c = fwd_c & ok_edge(proxies, idx[:, None])
+            fwd = del_pack & ~pop_hit
+            del_fwd = fwd & ok_edge(proxies, idx[:, None])
+
+            # ======== Calls 3 + 4: escalation-only delivery waves ===========
+            if escalating:
+                no_marks = torch.zeros((n, n), dtype=torch.bool, device=dev)
+                mark3 = _scatter_or(no_marks, proxies, jstar[:, None], del_pack)
+                mark3 = _scatter_or(mark3, idx[:, None], proxies, del_fwd_c)
+                S_, T_, lat_, idv_ = apply_marks(S_, T_, lat_, idv_, mark3)
+                mark4 = _scatter_or(no_marks, idx[:, None], proxies, del_fwd)
+                S_, T_, lat_, idv_ = apply_marks(S_, T_, lat_, idv_, mark4)
+                if not cfg.faithful_indirect_ack:
+                    cleared = (del_fwd | del_fwd_c).any(dim=-1)
+                    clr_cell = cleared[:, None] & jstar_cell & (S_ > 0)
+                    S_ = torch.where(clr_cell, KNOWN, S_)
+                    T_ = torch.where(clr_cell, t, T_)
+
+            # ============= G. Anti-entropy ==================================
+            if joining or escalating:
+                fp_g, n_g = fp_count(S_, idv_)
+            else:
+                fp_g, n_g = _add32(fp1, dfp2), n1 + dn2
+
+            prio0, peer0, prio1, peer1 = _ae_phase01(
+                fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt
+            )
+            # Phase 2 (call-3 acks) and phase 3 (call-4 forwarded acks).
+            base2, base3 = 2 * n, 3 * n
+            jc = jstar.clamp(min=0).long()
+            x_fp2, x_n2 = fp2[jc], n2[jc]
+            m_px = del_pack & (x_fp2[:, None] != fp_g[pc]) & (n_g[pc] <= x_n2[:, None])
+            prio_proxy = torch.full((n,), INF, dtype=torch.int32, device=dev).scatter_reduce(
+                0, pc.reshape(-1),
+                torch.where(m_px, base2 + jstar[:, None], INF).reshape(-1),
+                reduce="amin", include_self=True,
+            )
+            peer_proxy = prio_proxy - base2
+            x_fp1, x_n1 = fp1[jc], n1[jc]
+            m_cf = del_fwd_c & (x_fp1[:, None] != fp_g[:, None]) & (n_g[:, None] <= x_n1[:, None])
+            prio_coinc = torch.where(m_cf, base2 + proxies, INF).amin(dim=-1)
+            prio2 = torch.minimum(prio_proxy, prio_coinc)
+            peer2 = torch.where(prio_proxy <= prio_coinc, peer_proxy, jstar)
+            m_f = del_fwd & (x_fp2[:, None] != fp_g[:, None]) & (n_g[:, None] <= x_n2[:, None])
+            prio3 = torch.where(m_f, base3 + proxies, INF).amin(dim=-1)
+            peer3 = jstar
+
+            best = torch.minimum(torch.minimum(prio0, prio1), torch.minimum(prio2, prio3))
+            partner = torch.where(
+                best == prio0, peer0,
+                torch.where(best == prio1, peer1, torch.where(best == prio2, peer2, peer3)),
+            ).to(torch.int32)
+            has_req = (best != INF) & alive
+            partner = torch.where(has_req, partner, -1)
+            del_kpr = has_req & ok_edge(idx, partner)
+            del_rep = del_kpr & ok_edge(partner, idx)  # partner -> requester
+
+            S_, T_, lat_, idv_, fp_f, n_f = _anti_entropy(
+                S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
+            )
+            msgs = sum(
+                x.sum(dtype=torch.int64)
+                for x in (ok_ping, ok_man, del_pr, del_ack, del_ack_man, del_pping,
+                          del_pack, del_fwd_c, del_fwd, del_kpr, del_rep)
+            )
+            if reply_del is not None:
+                msgs = msgs + reply_del.sum(dtype=torch.int64)
+            return _finish(
+                S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
+                fp_g, n_g, fp_f, n_f, msgs,
+            )
+
+        def _fast():
+            """The fused program: a tick with no Join broadcast and no
+            suspicion activity (A2 is a no-op, no proxies, no join replies,
+            calls 3-4 carry nothing). Every mask is a one-hot outer form of
+            ``[N]`` vectors, so the A3 write, the call-1 and call-2 marks and
+            both waves' exact (fp, count) deltas compose from the ORIGINAL
+            (S, T) in one update."""
+            S_, T_, lat_, idv_ = S, T, lat, idv
+            elig = alive[:, None] & (S_ == KNOWN) & ~eye
+            ping_tgt = choose_one_of_oldest_k(
+                T_, elig, cfg.num_candidate_target_peers, key_ping, det,
+                method=cfg.oldest_k_method,
+            )
+            has_ping = ping_tgt >= 0
+            ok_ping = has_ping & ok_edge(idx, ping_tgt)
+            ok_man = (man_tgt >= 0) & ok_edge(idx, man_tgt)
+            del_ack = ok_ping & ok_edge(ping_tgt, idx)
+            del_ack_man = ok_man & ok_edge(man_tgt, idx)
+
+            tgt_cell = _row_mark(idx, ping_tgt, has_ping)
+            mark1 = _col_mark(idx, ping_tgt, ok_ping) | _col_mark(idx, man_tgt, ok_man)
+            mark2 = _row_mark(idx, ping_tgt, del_ack) | _row_mark(idx, man_tgt, del_ack_man)
+            mark_k = mark1 | mark2
+
+            member0 = S_ > 0
+            n0 = member0.sum(dim=-1, dtype=torch.int32)
+            member1 = member0 | mark1
+            dn1 = (mark1 & ~member0).sum(dim=-1, dtype=torch.int32)
+            dn2 = (mark2 & ~member1).sum(dim=-1, dtype=torch.int32)
+            if has_idv:
+                old_hash = torch.where(member0, as_u32(peer_record_hash(pid_row, idv_)), 0)
+                fp0 = wrap32(old_hash.sum(dim=-1))
+                dfp1 = wrap32(torch.where(mark1, rec64 - old_hash, 0).sum(dim=-1))
+                hash1 = torch.where(mark1, rec64, old_hash)
+                dfp2 = wrap32(torch.where(mark2, rec64 - hash1, 0).sum(dim=-1))
+                idv_ = torch.where(mark_k, id_row, idv_)
+            else:
+                fp0 = wrap_sum(torch.where(member0, rec_row, zero32))
+                dfp1 = wrap_sum(torch.where(mark1 & ~member0, rec_row, zero32))
+                dfp2 = wrap_sum(torch.where(mark2 & ~member1, rec_row, zero32))
+            if has_lat:
+                # Wave-ordered EWMA sampling, composed: wave 1 samples where
+                # the post-A3 state was waiting, wave 2 where the post-wave-1
+                # state still was.
+                S_a3 = torch.where(tgt_cell, WAITING_FOR_PING, S_)
+                T_a3 = torch.where(tgt_cell, t, T_)
+                waiting1 = (S_a3 == WAITING_FOR_PING) | (S_a3 == WAITING_FOR_INDIRECT_PING)
+                sample1 = (t - T_a3.to(torch.int32)).to(torch.float32)
+                upd1 = torch.where(torch.isnan(lat_), sample1, 0.8 * sample1 + 0.2 * lat_)
+                lat1 = torch.where(mark1 & waiting1, upd1, lat_)
+                S_1 = torch.where(mark1, KNOWN, S_a3)
+                T_1 = torch.where(mark1, t, T_a3)
+                waiting2 = (S_1 == WAITING_FOR_PING) | (S_1 == WAITING_FOR_INDIRECT_PING)
+                sample2 = (t - T_1.to(torch.int32)).to(torch.float32)
+                upd2 = torch.where(torch.isnan(lat1), sample2, 0.8 * sample2 + 0.2 * lat1)
+                lat_ = torch.where(mark2 & waiting2, upd2, lat1)
+            S_ = torch.where(mark_k, KNOWN, torch.where(tgt_cell, WAITING_FOR_PING, S_))
+            T_ = torch.where(mark_k | tgt_cell, t, T_)
+            fp1, n1 = _add32(fp0, dfp1), n0 + dn1
+            fp_g, n_g = _add32(fp1, dfp2), n1 + dn2
+
+            # G: anti-entropy candidates, phases 0 and 1 only.
+            prio0, peer0, prio1, peer1 = _ae_phase01(
+                fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt
+            )
+            best = torch.minimum(prio0, prio1)
+            partner = torch.where(best == prio0, peer0, peer1).to(torch.int32)
+            has_req = (best != INF) & alive
+            partner = torch.where(has_req, partner, -1)
+            del_kpr = has_req & ok_edge(idx, partner)
+            del_rep = del_kpr & ok_edge(partner, idx)
+
+            S_, T_, lat_, idv_, fp_f, n_f = _anti_entropy(
+                S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
+            )
+            msgs = sum(
+                x.sum(dtype=torch.int64)
+                for x in (ok_ping, ok_man, del_ack, del_ack_man, del_kpr, del_rep)
+            )
+            return _finish(
+                S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
+                fp_g, n_g, fp_f, n_f, msgs,
+            )
+
+        # ---- dispatch ------------------------------------------------------
+        if program == "fused":
+            return _fast()
+        if program == "full" or not cfg.fast_path:
+            return _rest()
+        terms = {"any_a2": any_a2, "any_join": any_join}
+        pred = terms[pred_terms[0]]
+        for term in pred_terms[1:]:
+            pred = pred | terms[term]
+        return _rest() if bool(pred) else _fast()
+
+    return tick

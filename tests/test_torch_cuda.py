@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card: each against its plain version, bit for bit.
+
+These tests need a CUDA card and nvcc; without a card each skips. The card's
+machine has no JAX, so this file imports only PyTorch and the port, and is
+run there without the repo's conftest (which imports JAX):
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kaboodle_tpu_torch.config import SwimConfig
+from kaboodle_tpu_torch.ops import _cuda
+from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
+from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k, fused_oldest_k_plain
+from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion, fused_suspicion_plain
+from kaboodle_tpu_torch.phasegraph.exec import _bool_matmul
+from kaboodle_tpu_torch.sim import baseline_scenario, init_state, make_tick_fn
+from kaboodle_tpu_torch.sim.state import metrics_to_numpy, state_to_numpy
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(n, timer_dtype, seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    state = torch.randint(0, 4, (n, n), generator=g, device=dev, dtype=torch.int8)
+    timer = torch.randint(-12, 40, (n, n), generator=g, device=dev, dtype=torch.int32)
+    timer = torch.where(torch.rand((n, n), generator=g, device=dev) < 0.05,
+                        torch.iinfo(timer_dtype).max, timer).to(timer_dtype)
+    alive = torch.rand((n,), generator=g, device=dev) < 0.8
+    idv = torch.randint(-2**31, 2**31 - 1, (n, n), generator=g, device=dev, dtype=torch.int32)
+    return state, timer, alive, idv
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048])
+def test_fused_fp_on_card(card, n):
+    state, _, _, idv = _inputs(n, torch.int32, n, card)
+    before = _cuda.launches["fused_fp_idv"]
+    _equal(fused_fp_count(state, idv), fused_fp_count_plain(state, idv))
+    _equal(fused_fp_count(state, idv[0]), fused_fp_count_plain(state, idv[0]))
+    assert _cuda.launches["fused_fp_idv"] == before + 1
+
+
+@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048])
+@pytest.mark.parametrize("timer_dtype", [torch.int16, torch.int32])
+def test_fused_suspicion_on_card(card, n, timer_dtype):
+    state, timer, alive, _ = _inputs(n, timer_dtype, n + 1, card)
+    for thr in (-3, 9):
+        _equal(fused_suspicion(state, timer, alive, thr),
+               fused_suspicion_plain(state, timer, alive, thr))
+
+
+@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048])
+@pytest.mark.parametrize("timer_dtype", [torch.int16, torch.int32])
+def test_fused_oldest_k_on_card(card, n, timer_dtype):
+    state, timer, alive, _ = _inputs(n, timer_dtype, n + 2, card)
+    for k in (1, 3, 5, 8):
+        _equal(fused_oldest_k(state, timer, alive, k), fused_oldest_k_plain(state, timer, alive, k))
+    with pytest.raises(ValueError):
+        fused_oldest_k(state, timer, alive, 9)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 512, 512), (13, 40, 7), (24, 20, 16)])
+def test_bool_matmul_on_card(card, m, k, n):
+    """``torch._int_mm`` direct (sides it accepts) and zero-padded, with a
+    transposed operand as the tick passes it, against the CPU's int32 product."""
+    g = torch.Generator(device=card)
+    g.manual_seed(m + k + n)
+    a = torch.rand((k, m), generator=g, device=card) < 0.3
+    b = torch.rand((k, n), generator=g, device=card) < 0.3
+    assert torch.equal(_bool_matmul(a.T, b).cpu(), _bool_matmul(a.T.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("det", [False, True])
+def test_tick_on_card_equals_cpu(card, det):
+    cfg = SwimConfig(deterministic=det, use_pallas_fp=True, use_pallas_oldest_k=True,
+                     use_pallas_suspicion=True)
+    sc = baseline_scenario(3, n=256, ticks=12, seed=4)
+    tick = make_tick_fn(cfg)
+    sides = {d: (init_state(256, seed=1, alive=sc.initial_alive(), device=d), sc.build(d))
+             for d in ("cuda", "cpu")}
+    for t in range(sc.ticks):
+        out = {}
+        for d, (st, inp) in sides.items():
+            st, m = tick(st, inp.at(t))
+            sides[d] = (st, inp)
+            out[d] = {**state_to_numpy(st), **metrics_to_numpy(m)}
+        for k, w in out["cpu"].items():
+            g = out["cuda"][k]
+            if k == "latency":
+                np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+                np.testing.assert_allclose(g, w, rtol=1e-5)
+            elif w is not None:
+                np.testing.assert_array_equal(g, w, err_msg=f"tick {t} {k}")
