@@ -5,30 +5,38 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs five phases, each printing one JSON line; any failure raises and the
+runs six phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
                registers and spills of every kernel (``-Xptxas -v``).
 2. kernels  -- each kernel against its plain PyTorch version on the card,
-               bit-exact, at the path's widths (N = 16,384 and 8,192), int16
-               and int32 timers, k = 1 and 5, negative timers, timers at the
-               dtype max, dead rows, and N not a multiple of 128; timed with
-               CUDA events over repeated launches.
+               bit-exact, at the path's widths (N = 16,384 and 8,192) and
+               others (4,112, 1,000), int16 and int32 timers, k = 1, 5, 9,
+               40 and k above the eligible count, negative timers, timers at
+               the dtype max, dead rows. Each shape the main path launches a
+               kernel at is timed with CUDA events over repeated launches,
+               beside its bound and its plain version; K4 also beside
+               ``torch.topk`` over a prebuilt key plane (a selection
+               yardstick, not the same function).
 3. boot     -- fault-free broadcast boot to convergence at N = 16,384, lean
                state, int16 timers, all three kernel flags on, random mode.
 4. churn    -- BASELINE config 3: N = 8,192, 64 ticks, 5 %/tick churn over
                ticks 1-32, full state (latency, identity views, int32
                timers), all flags on, random mode.
-5. parity   -- the port on the card (kernels) against the port on the CPU
+5. kernels_churn_state -- K4 on the churn run's final state, timer and
+               alive planes (realistic timers: few distinct values, long
+               runs of ties), bit-exact for k = 1, 5, 9, timed at k = 5.
+6. parity   -- the port on the card (kernels) against the port on the CPU
                (plain versions) at N = 512, 24 churn ticks, deterministic and
                random mode: every integer and bool leaf and metric equal,
                ``latency`` with NaN positions equal and rtol 1e-5.
 
 Launch counts are reset just before the boot and the churn runs and read
 just after: each kernel of the path must have launched. The last lines are
-the card's name and power limit, the ``{"kernels": [...]}`` summary, and
-``{"ok": true, "device": {...}}``.
+the card's name and power limit, the ``{"kernels": [...]}`` summary (per
+kernel the numbers of the shape it is launched at most, and every timed
+shape under ``shapes``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ from pathlib import Path
 # whitepaper) x 132 SMs x 1.98 GHz, the boost clock behind the data sheet's
 # 67 TFLOP/s float32 rate (128 lanes x 2 FLOPs an FMA at the same clock).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 64 * 132 * SM_CLOCK_HZ
 # 32-bit integer operations a function needs per cell, counted from its
 # definition (the per-cell body of the kernel), as (cell of an alive row,
 # cell of a dead row). fp_idv: two mix32 (3 xor-shifts + 2 multiplies each,
@@ -105,11 +114,21 @@ def ptxas_summary(log: str) -> list[dict]:
 
 
 def time_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls.
+
+    The calls are queued behind a sleep kernel that outlasts their launch
+    on the host, so a kernel shorter than its wrapper's host time is timed
+    on the card, not at the host's launch rate."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_call_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * reps * one_call_s, 2.0) * SM_CLOCK_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -144,8 +163,25 @@ def kernel_inputs(n: int, timer_dtype, gen):
     return state, timer, alive, idv
 
 
-def phase_kernels() -> dict:
-    """Every kernel against its plain version; the main-path shapes are timed."""
+def oldest_k_key_plane(state, timer, alive):
+    """The int64 (timer, j) keys of K4's eligible cells, INT64_MAX elsewhere:
+    the input of the ``torch.topk`` yardstick, built outside its timing."""
+    import torch
+
+    from kaboodle_tpu_torch.spec import KNOWN
+
+    n = state.shape[-1]
+    col = torch.arange(n, device=state.device)
+    T = timer.to(torch.int64)
+    elig = (alive[:, None] & (state == KNOWN) & (col[None, :] != col[:, None])
+            & (T != torch.iinfo(timer.dtype).max))
+    return torch.where(elig, T * 2**32 + col[None, :], torch.iinfo(torch.int64).max)
+
+
+def measure(name, n, k, state, timer, alive, idv, timed) -> tuple[dict, dict | None]:
+    """One kernel case against its plain version; with ``timed`` (the main
+    path cell whose shape this is) also its time, its bound and, for K4, the
+    ``torch.topk`` yardstick."""
     import torch
 
     from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
@@ -153,70 +189,118 @@ def phase_kernels() -> dict:
     from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion, fused_suspicion_plain
     from kaboodle_tpu_torch.ops.hashing import peer_record_hash
 
+    tb = timer.element_size()
+    thr = 9
+    live = int(alive.sum())
+    if name == "fused_fp_idv":
+        run = lambda: fused_fp_count(state, idv)  # noqa: E731
+        plain = lambda: fused_fp_count_plain(state, idv)  # noqa: E731
+        nbytes = n * n * 5 + 8 * n
+    elif name == "fused_fp_hash":
+        rec = peer_record_hash(torch.arange(n, device="cuda"), idv[0])
+        run = lambda: fused_fp_count(state, rec)  # noqa: E731
+        plain = lambda: fused_fp_count_plain(state, rec)  # noqa: E731
+        nbytes = n * n + 4 * n + 8 * n
+    elif name == "fused_suspicion":
+        run = lambda: fused_suspicion(state, timer, alive, thr)  # noqa: E731
+        plain = lambda: fused_suspicion_plain(state, timer, alive, thr)  # noqa: E731
+        # Every output that reads a timer is gated on alive[i]: a dead
+        # row needs its state row only.
+        nbytes = n * n + live * n * tb + n + 11 * n
+    else:
+        run = lambda: fused_oldest_k(state, timer, alive, k)  # noqa: E731
+        plain = lambda: fused_oldest_k_plain(state, timer, alive, k)  # noqa: E731
+        # Dead rows have no eligible cell and are not read.
+        nbytes = live * n * (1 + tb) + n + 5 * n * k
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    mism, err = max_abs_diff(got, want)
+    case = {"kernel": name, "n": n, "timer": str(timer.dtype).replace("torch.", ""), "k": k,
+            "mismatches": mism, "max_abs_err": err}
+    if mism:
+        raise AssertionError(f"{name} disagrees with its plain version: {case}")
+    if not timed:
+        return case, None
+    per_live, per_dead = OPS_PER_CELL[name]
+    ops = (live * per_live + (n - live) * per_dead) * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    row = {
+        "cell": timed, "shape": case, "rows_alive": live,
+        "kernel_ms": time_ms(run, 20),
+        "plain_ms": time_ms(plain, 3),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
+        "library_ms": None,
+    }
+    if name == "fused_oldest_k":
+        keys = oldest_k_key_plane(state, timer, alive)
+        top = lambda: torch.topk(keys, k, dim=-1, largest=False, sorted=True)  # noqa: E731
+        vals, cols = top()
+        ok = vals != torch.iinfo(torch.int64).max
+        if not (torch.equal(ok, got[1]) and torch.equal(cols[ok].to(torch.int32), got[0][ok])):
+            raise AssertionError(f"torch.topk yardstick disagrees with {name}: {case}")
+        row["library_ms"] = time_ms(top, 5)
+        row["library_call"] = ("torch.topk(keys, k, largest=False, sorted=True): "
+                               "selection only, key plane prebuilt")
+        del keys, vals, cols
+    return case, row
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version; each shape the main path
+    launches a kernel at is timed (``cell`` names the run that launches it)."""
+    import torch
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cases, rows = [], {}
-    # (kernel, n, timer dtype, k, timed as the main path's shape)
-    plan = [("fused_fp_idv", n, torch.int32, 0, n == 8192) for n in (8192, 16384, 1000)]
-    plan += [("fused_fp_hash", n, torch.int16, 0, n == 16384) for n in (16384, 8192, 1000)]
-    plan += [("fused_suspicion", n, dt, 0, n == 16384 and dt == torch.int16)
-             for n in (16384, 8192, 4112, 1000) for dt in (torch.int16, torch.int32)]
-    plan += [("fused_oldest_k", n, dt, k, n == 16384 and dt == torch.int16 and k == 5)
-             for n in (16384, 8192, 1000) for dt in (torch.int16, torch.int32) for k in (1, 5)]
+    i16, i32 = torch.int16, torch.int32
+    # (kernel, n, timer dtype, k, the main-path cell launching this shape)
+    plan = [("fused_fp_idv", n, i32, 0, "churn" if n == 8192 else None)
+            for n in (8192, 16384, 1000)]
+    plan += [("fused_fp_hash", n, i16, 0, "boot" if n == 16384 else None)
+             for n in (16384, 8192, 1000)]
+    plan += [("fused_suspicion", n, dt, 0,
+              {(16384, i16): "boot", (8192, i32): "churn"}.get((n, dt)))
+             for n in (16384, 8192, 4112, 1000) for dt in (i16, i32)]
+    plan += [("fused_oldest_k", n, dt, k,
+              {(16384, i16, 5): "boot", (8192, i32, 5): "churn"}.get((n, dt, k)))
+             for n in (16384, 8192, 1000) for dt in (i16, i32) for k in (1, 5, 9)]
+    # k above one 32-wide round; k above the eligible count
+    plan += [("fused_oldest_k", 4112, i16, 40, None), ("fused_oldest_k", 1000, i32, 1000, None)]
+    cases, rows = [], []
     for name, n, dt, k, timed in plan:
         state, timer, alive, idv = kernel_inputs(n, dt, gen)
-        tb = timer.element_size()
-        thr = 9
-        live = int(alive.sum())
-        if name == "fused_fp_idv":
-            run = lambda: fused_fp_count(state, idv)  # noqa: E731
-            plain = lambda: fused_fp_count_plain(state, idv)  # noqa: E731
-            nbytes = n * n * 5 + 8 * n
-        elif name == "fused_fp_hash":
-            rec = peer_record_hash(torch.arange(n, device="cuda"), idv[0])
-            run = lambda: fused_fp_count(state, rec)  # noqa: E731
-            plain = lambda: fused_fp_count_plain(state, rec)  # noqa: E731
-            nbytes = n * n + 4 * n + 8 * n
-        elif name == "fused_suspicion":
-            run = lambda: fused_suspicion(state, timer, alive, thr)  # noqa: E731
-            plain = lambda: fused_suspicion_plain(state, timer, alive, thr)  # noqa: E731
-            # Every output that reads a timer is gated on alive[i]: a dead
-            # row needs its state row only.
-            nbytes = n * n + live * n * tb + n + 11 * n
-        else:
-            run = lambda: fused_oldest_k(state, timer, alive, k)  # noqa: E731
-            plain = lambda: fused_oldest_k_plain(state, timer, alive, k)  # noqa: E731
-            # Dead rows have no eligible cell and are not read.
-            nbytes = live * n * (1 + tb) + n + 5 * n * k
-        per_live, per_dead = OPS_PER_CELL[name]
-        ops = (live * per_live + (n - live) * per_dead) * n
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT32_OPS_PER_S * 1e3
-        got = run()
-        want = plain()
-        torch.cuda.synchronize()
-        mism, err = max_abs_diff(got, want)
-        case = {"kernel": name, "n": n, "timer": str(dt).replace("torch.", ""), "k": k,
-                "mismatches": mism, "max_abs_err": err}
-        if timed:
-            reps = 20
-            row = {
-                "shape": case,
-                "kernel_ms": time_ms(run, reps),
-                "plain_ms": time_ms(plain, 3),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes_ms": bytes_ms,
-                "ops_ms": ops_ms,
-            }
-            rows[name] = row
+        case, row = measure(name, n, k, state, timer, alive, idv, timed)
         cases.append(case)
-        if mism:
-            raise AssertionError(f"{name} disagrees with its plain version: {case}")
+        if row:
+            rows.append({"kernel": name, **row})
         del state, timer, alive, idv
     torch.cuda.empty_cache()
-    emit({"phase": "kernels", "tolerance": "bit-exact", "cases": cases,
-          "timed": rows})
+    emit({"phase": "kernels", "tolerance": "bit-exact", "cases": cases, "timed": rows})
+    return {"rows": rows, "cases": cases}
+
+
+def phase_kernels_churn_state(final) -> dict:
+    """K4 on the churn run's final planes (few distinct timers, long runs of
+    ties), bit-exact for k = 1, 5, 9; timed at k = 5, the churn's k."""
+    import torch
+
+    state, timer, alive = final.state, final.timer, final.alive
+    n = state.shape[-1]
+    cases, rows = [], []
+    for k in (1, 5, 9):
+        case, row = measure("fused_oldest_k", n, k, state, timer, alive, None,
+                            "churn_final_state" if k == 5 else None)
+        cases.append({**case, "data": "churn final state"})
+        if row:
+            rows.append({"kernel": "fused_oldest_k", **row})
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_churn_state", "tolerance": "bit-exact", "cases": cases,
+          "timed": rows, "distinct_timers": int(torch.unique(timer).numel())})
     return {"rows": rows, "cases": cases}
 
 
@@ -335,7 +419,7 @@ def phase_churn() -> dict:
     for k in ("fused_fp_idv", "fused_suspicion", "fused_oldest_k"):
         if launches[k] <= 0:
             raise AssertionError(f"churn never launched {k}")
-    return out
+    return out, final
 
 
 def phase_parity() -> dict:
@@ -407,22 +491,32 @@ def main() -> int:
 
     kern = phase_kernels()
     boot = phase_boot()
-    churn = phase_churn()
+    churn, final = phase_churn()
+    churn_state = phase_kernels_churn_state(final)
+    del final
     phase_parity()
 
+    rows = kern["rows"] + churn_state["rows"]
+    cases = kern["cases"] + churn_state["cases"]
     summary = []
     for name, (source, replaces) in KERNEL_META.items():
-        row = kern["rows"][name]
-        worst = max((c["max_abs_err"] for c in kern["cases"] if c["kernel"] == name), default=0)
-        mism = sum(c["mismatches"] for c in kern["cases"] if c["kernel"] == name)
+        shapes = []
+        for row in (r for r in rows if r["kernel"] == name):
+            run = boot if row["cell"] == "boot" else churn
+            shapes.append({**{k: v for k, v in row.items() if k != "kernel"},
+                           "launches": run["launches"][name]})
+        # The headline numbers are those of the shape launched most often.
+        top = max(shapes, key=lambda r: r["launches"])
+        mine = [c for c in cases if c["kernel"] == name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": boot["launches"][name] + churn["launches"][name],
             "launches_boot": boot["launches"][name], "launches_churn": churn["launches"][name],
-            "mismatches": mism, "max_abs_err": worst,
-            "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
-            "shape": row["shape"],
+            "mismatches": sum(c["mismatches"] for c in mine),
+            "max_abs_err": max((c["max_abs_err"] for c in mine), default=0),
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "shape": top["shape"], "cell": top["cell"], "shapes": shapes,
         })
     print(card, flush=True)
     emit({"kernels": summary})

@@ -1,11 +1,12 @@
 // Shared pieces of the row-reduction kernels: block reductions, 16-byte
 // row loads, and the error string of a launch's return code.
 //
-// Every kernel here reduces one row of an [N, N] plane per block: the
-// threads stride over the row (16 columns per thread per step when the
-// rows are 16-byte aligned, one column otherwise), reduce in registers,
-// then across the warp with shuffles and across the warps through shared
-// memory.
+// The fingerprint and suspicion kernels reduce one row of an [N, N] plane
+// per block: the threads stride over the row (16 columns per thread per
+// step when the rows are 16-byte aligned, one column otherwise), reduce in
+// registers, then across the warp with shuffles and across the warps
+// through shared memory. The oldest-k kernel gives each row one warp (its
+// head comment says why).
 #pragma once
 
 #include <cstdint>

@@ -10,7 +10,7 @@ candidate here either.
 The kernel (``csrc/fused_oldest_k.cu``) replaces the Pallas kernel
 ``kaboodle_tpu/ops/fused_oldest_k.py::fused_oldest_k`` (pallas_call at
 fused_oldest_k.py:119); its bound and design are in the source's head
-comment. It takes ``1 <= k <= 8``. The wrapper takes the plain version
+comment. It takes any ``k >= 1``. The wrapper takes the plain version
 only for CPU tensors; a CUDA tensor launches the kernel or raises.
 """
 
@@ -23,7 +23,6 @@ import torch
 from kaboodle_tpu_torch.ops import _cuda
 from kaboodle_tpu_torch.spec import KNOWN
 
-MAX_K = 8
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -66,7 +65,6 @@ def fused_oldest_k(state: torch.Tensor, timer: torch.Tensor, alive: torch.Tensor
     if state.device.type == "cpu":
         return fused_oldest_k_plain(state, timer, alive, k)
     _cuda.require(state.device.type == "cuda", f"unsupported device {state.device}")
-    _cuda.require(k <= MAX_K, f"the CUDA kernel takes k <= {MAX_K}, got {k}")
     lib = _cuda.library("fused_oldest_k", kb_fused_oldest_k=_ARGTYPES)
     dev = state.device
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)

@@ -65,14 +65,27 @@ def test_fused_suspicion_on_card(card, n, timer_dtype):
                fused_suspicion_plain(state, timer, alive, thr))
 
 
-@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048])
+@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048, 4112])
 @pytest.mark.parametrize("timer_dtype", [torch.int16, torch.int32])
 def test_fused_oldest_k_on_card(card, n, timer_dtype):
+    """Any k, one 32-wide round or several, and k above the eligible count;
+    the 16-byte route (n % 16 == 0) and the scalar one; a row with no
+    eligible cell, a row of one tied timer, and timers at the dtype's min."""
     state, timer, alive, _ = _inputs(n, timer_dtype, n + 2, card)
-    for k in (1, 3, 5, 8):
+    tmin = torch.iinfo(timer_dtype).min
+    alive[: min(n, 4)] = True
+    state[0] = 0                                    # no eligible cell
+    if n > 1:
+        state[1], timer[1] = 1, 3                   # every cell KNOWN, one tied timer
+    if n > 2:
+        timer[2, ::2] = tmin                        # the dtype's min, ties among them
+    if n > 3:
+        timer[3] = torch.where(state[3] == 1, tmin, timer[3])
+    before = _cuda.launches["fused_oldest_k"]
+    ks = (1, 3, 5, 8, 9, 16, 40)
+    for k in ks:
         _equal(fused_oldest_k(state, timer, alive, k), fused_oldest_k_plain(state, timer, alive, k))
-    with pytest.raises(ValueError):
-        fused_oldest_k(state, timer, alive, 9)
+    assert _cuda.launches["fused_oldest_k"] == before + len(ks)
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 512, 512), (13, 40, 7), (24, 20, 16)])

@@ -138,7 +138,7 @@ def test_suspicion_plain_matches_jnp_any_n(timer_dtype, thr):
 @pytest.mark.parametrize("timer_dtype", [np.int16, np.int32])
 def test_oldest_k_plain_matches_pallas(n, timer_dtype):
     state, timer, alive, _ = _case(n, timer_dtype, 11 + n)
-    for k in (1, 5):
+    for k in (1, 5) + ((9, 16) if n == 128 else ()):  # k above 8 once, at the smaller n
         gi, gv = fused_oldest_k(_t(state), _t(timer), _t(alive), k)
         wi, wv = pallas_oldest_k(jnp.asarray(state), jnp.asarray(timer), jnp.asarray(alive), k,
                                  interpret=True)
@@ -151,7 +151,7 @@ def test_oldest_k_plain_matches_jnp_any_n(timer_dtype):
     state, timer, alive, _ = _case(200, timer_dtype, 3)
     state[5, :] = KNOWN  # a full row with ties and sentinel timers
     timer[5, :40] = 0
-    for k in (1, 5, 8):
+    for k in (1, 5, 8, 9, 16, 200):  # 200 > any row's eligible count
         gi, gv = fused_oldest_k(_t(state), _t(timer), _t(alive), k)
         wi, wv = _jnp_oldest_k(state, timer, alive, k)
         np.testing.assert_array_equal(gv.numpy(), wv)

@@ -194,10 +194,14 @@ def test_random_drop_rate(jax_tick):
     dict(faithful_failed_broadcast=False, faithful_indirect_ack=False),
     dict(deterministic=True, max_share_peers=40, faithful_failed_broadcast=False),
     dict(oldest_k_method="topk", fast_path=False, backdate_gossip_inserts=False),
+    dict(num_candidate_target_peers=9, use_pallas_oldest_k=True),
 ])
 def test_protocol_variants(jax_tick, kw):
+    """Each variant on both engines; a kernel flag is set on the port only
+    (the JAX side keeps its jnp formulation, fast to compile)."""
     sc = jscen.baseline_scenario(3, n=128, ticks=24, seed=1)
-    _run_both(jax_tick(JaxSwimConfig(**kw)), make_tick_fn(SwimConfig(**kw)),
+    jkw = {f: v for f, v in kw.items() if not f.startswith("use_pallas")}
+    _run_both(jax_tick(JaxSwimConfig(**jkw)), make_tick_fn(SwimConfig(**kw)),
               _jax_state(128, False, seed=7), sc.build(), 24)
 
 
