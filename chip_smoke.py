@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs six phases, each printing one JSON line; any failure raises and the
+runs nine phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -27,24 +27,46 @@ script exits non-zero without the result line:
 5. kernels_churn_state -- K4 on the churn run's final state, timer and
                alive planes (realistic timers: few distinct values, long
                runs of ties), bit-exact for k = 1, 5, 9, timed at k = 5.
-6. parity   -- the port on the card (kernels) against the port on the CPU
+6. telemetry -- the telemetry build: ``simulate_with_telemetry`` over the
+               churn run's inputs (recorder of 32 ticks), its final state and
+               per-tick metrics bit-equal to the churn's; then
+               ``run_until_converged_telemetry`` at the boot's shape,
+               ``(state, ticks, converged)`` equal to the boot's. Counter
+               totals, the recorder's last rows, walls and peaks.
+7. parity   -- the port on the card (kernels) against the port on the CPU
                (plain versions) at N = 512, 24 churn ticks, deterministic and
                random mode: every integer and bool leaf and metric equal,
-               ``latency`` with NaN positions equal and rtol 1e-5.
+               ``latency`` with NaN positions equal and rtol 1e-5; the
+               telemetry build's counters and digest plane equal per tick.
+8. facade   -- ``SimNetwork(8192)`` with all kernel flags on the card: 512
+               instances start and converge, 32 stop and every running
+               instance receives their departures, then one of the departed
+               instances rejoins under a new identity and the mesh
+               re-converges; at each convergence every running instance's
+               ``fingerprint()`` equals its row of the kernel fingerprint.
+               The same script at capacity 256 gives the same events, tick
+               for tick, on the card and on the CPU.
+9. checkpoint -- the churn state at tick 32 saved to ``.npz`` in a
+               temporary directory of the checkout, loaded onto the card,
+               run 32 more ticks: bit-equal to the uninterrupted churn run.
 
-Launch counts are reset just before the boot and the churn runs and read
-just after: each kernel of the path must have launched. The last lines are
-the card's name and power limit, the ``{"kernels": [...]}`` summary (per
-kernel the numbers of the shape it is launched at most, and every timed
-shape under ``shapes``), and ``{"ok": true, "device": {...}}``.
+Launch counts are reset just before each main-path run (boot, churn, the
+two telemetry runs, the facade at capacity 8,192 and the checkpoint's
+resumed ticks) and read just after: each kernel of the path must have
+launched. The last lines are the card's name and power limit, the
+``{"kernels": [...]}`` summary (per kernel the numbers of the shape it is
+launched at most, every timed shape under ``shapes`` and the launches per
+run under ``launches_by_run``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -313,6 +335,65 @@ def counts() -> dict:
     return dict(_cuda.launches)
 
 
+# The kernels each main-path run must launch: the boot's lean state hashes
+# a precomputed record vector (K2), every full state its identity views (K1).
+BOOT_KERNELS = ("fused_fp_hash", "fused_suspicion", "fused_oldest_k")
+CHURN_KERNELS = ("fused_fp_idv", "fused_suspicion", "fused_oldest_k")
+
+
+def require_launches(run: str, launches: dict, kernels) -> None:
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{run} never launched {k}")
+
+
+def to_host(obj):
+    """A copy of a ``MeshState``/``TickMetrics`` with every tensor on the host,
+    so a reference result held for a later comparison takes no device memory
+    (and no share of a later run's peak)."""
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu()
+                                       for f in dataclasses.fields(obj)
+                                       if getattr(obj, f.name) is not None})
+
+
+def state_diff(a, b) -> list[str]:
+    """The ``MeshState`` fields where ``a`` and ``b`` differ (NaN == NaN)."""
+    import torch
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                bad.append(f.name)
+        elif x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(f.name)
+        elif x.is_floating_point():
+            if not (torch.equal(torch.isnan(x), torch.isnan(y))
+                    and torch.equal(torch.nan_to_num(x, nan=0.0), torch.nan_to_num(y, nan=0.0))):
+                bad.append(f.name)
+        elif not torch.equal(x, y):
+            bad.append(f.name)
+    return bad
+
+
+def metrics_diff(a, b) -> list[str]:
+    """The ``TickMetrics`` fields where the stacked metrics differ, bit for bit."""
+    import torch
+
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def recorder_tail(rec, rows: int = 3) -> list[dict]:
+    """The recorder's last rows as JSON-ready dicts."""
+    from kaboodle_tpu_torch.telemetry import recorder_rows
+
+    table = recorder_rows(rec)["table"]
+    return [{name: table[name][i].item() for name in table.dtype.names}
+            for i in range(max(0, len(table) - rows), len(table))]
+
+
 def all_kernels_cfg():
     """The default configuration with all three kernel flags on."""
     from kaboodle_tpu_torch.config import SwimConfig
@@ -378,10 +459,8 @@ def phase_boot() -> dict:
     emit(out)
     if not conv:
         raise AssertionError("the N=16,384 broadcast boot did not converge")
-    for k in ("fused_fp_hash", "fused_suspicion", "fused_oldest_k"):
-        if launches[k] <= 0:
-            raise AssertionError(f"boot never launched {k}")
-    return out
+    require_launches("boot", launches, BOOT_KERNELS)
+    return out, final
 
 
 def phase_churn() -> dict:
@@ -416,10 +495,8 @@ def phase_churn() -> dict:
         raise AssertionError("final alive mask differs from the scenario's trajectory")
     if not bool(torch.isfinite(metrics.mean_membership).all()):
         raise AssertionError("non-finite mean_membership")
-    for k in ("fused_fp_idv", "fused_suspicion", "fused_oldest_k"):
-        if launches[k] <= 0:
-            raise AssertionError(f"churn never launched {k}")
-    return out, final
+    require_launches("churn", launches, CHURN_KERNELS)
+    return out, final, metrics
 
 
 def phase_parity() -> dict:
@@ -465,8 +542,313 @@ def phase_parity() -> dict:
         out["deterministic" if det else "random"] = {
             "equal_ticks": sc.ticks, "latency_max_abs_diff": worst_lat,
             "final_converged": bool(res["cuda"][1]["converged"]),
+            "telemetry": parity_telemetry(cfg, sc),
         }
     emit(out)
+    return out
+
+
+def parity_telemetry(cfg, sc) -> dict:
+    """The telemetry build on the card against the CPU: every counter, the
+    digest plane, the state and the metrics equal per tick."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.sim import init_state, make_tick_fn
+    from kaboodle_tpu_torch.telemetry import FIELDS
+
+    tick = make_tick_fn(cfg, faulty=True, telemetry=True)
+    sides = {dev: (init_state(512, seed=2, alive=sc.initial_alive(), device=dev),
+                   sc.build(dev)) for dev in ("cuda", "cpu")}
+    totals = dict.fromkeys(FIELDS, 0)
+    for t in range(sc.ticks):
+        res = {}
+        for dev, (st, inp) in sides.items():
+            st, tel = tick(st, inp.at(t))
+            sides[dev] = (st, inp)
+            res[dev] = (st, tel)
+        (gst, gtel), (wst, wtel) = res["cuda"], res["cpu"]
+        for f in FIELDS:
+            g, w = getattr(gtel.counters, f).cpu(), getattr(wtel.counters, f)
+            if not torch.equal(g, w):
+                raise AssertionError(f"telemetry tick {t}: counter {f} differs")
+            totals[f] += int(w)
+        if not torch.equal(gtel.fp.cpu(), wtel.fp):
+            raise AssertionError(f"telemetry tick {t}: fp differs between card and CPU")
+        gcpu = dataclasses.replace(gst, **{f.name: getattr(gst, f.name).cpu()
+                                           for f in dataclasses.fields(gst)
+                                           if getattr(gst, f.name) is not None})
+        bad = [f for f in state_diff(gcpu, wst) if f != "latency"]
+        if bad:
+            raise AssertionError(f"telemetry tick {t}: state {bad} differs between card and CPU")
+        if wst.latency is not None:
+            np.testing.assert_allclose(gcpu.latency.numpy(), wst.latency.numpy(), rtol=1e-5)
+        gm = dataclasses.replace(gtel.metrics, **{f.name: getattr(gtel.metrics, f.name).cpu()
+                                                  for f in dataclasses.fields(gtel.metrics)})
+        if metrics_diff(gm, wtel.metrics):
+            raise AssertionError(f"telemetry tick {t}: metrics differ between card and CPU")
+    return {"equal_ticks": sc.ticks, "counter_totals": totals}
+
+
+def phase_telemetry(churn, churn_final, churn_metrics, boot, boot_final) -> dict:
+    """The telemetry build at the churn's and the boot's shapes: the same
+    trajectory as the telemetry-off runs (their results held on the host),
+    plus counters and a recorder."""
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sim import run_until_converged_telemetry, simulate_with_telemetry
+    from kaboodle_tpu_torch.telemetry import (
+        FIELDS,
+        ProtocolCounters,
+        counters_totals,
+        recorder_rows,
+    )
+
+    cfg = all_kernels_cfg()
+    sc, make, _ = churn_case()
+    inputs = sc.build()
+    st = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    final, metrics, counters, rec = simulate_with_telemetry(st, inputs, cfg, faulty=True,
+                                                            recorder_len=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    del st
+    churn_out = {
+        "n": sc.n, "ticks": sc.ticks, "wall_s": wall, "wall_s_telemetry_off": churn["wall_s"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_telemetry_off": churn["max_memory_allocated"],
+        "counter_totals": counters_totals(counters), "recorder_rows": len(
+            recorder_rows(rec)["table"]), "recorder_last_rows": recorder_tail(rec),
+        "launches": launches,
+    }
+    require_launches("telemetry churn", launches, CHURN_KERNELS)
+    bad = state_diff(to_host(final), churn_final) + metrics_diff(to_host(metrics), churn_metrics)
+    if bad:
+        raise AssertionError(f"telemetry churn differs from the telemetry-off churn in {bad}")
+    del final, metrics, rec
+
+    make_boot, run_boot = boot_case()
+    # The boot phase was the run's first tick program and paid first-use
+    # costs; a second telemetry-off boot gives the warm wall to compare with.
+    st = make_boot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = run_boot(st)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    del st, warm
+    st = make_boot()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    bfinal, ticks, conv, totals, brec = run_until_converged_telemetry(st, cfg, max_ticks=64,
+                                                                      recorder_len=32)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    blaunches = counts()
+    del st
+    boot_out = {
+        "n": bfinal.n, "ticks_run": ticks, "converged": conv, "wall_s": bwall,
+        "wall_s_telemetry_off": boot["wall_s"], "wall_s_telemetry_off_warm": warm_wall,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_telemetry_off": boot["max_memory_allocated"],
+        "counter_totals": counters_totals(ProtocolCounters(
+            **{f: getattr(totals, f).reshape(1) for f in FIELDS})),
+        "recorder_last_rows": recorder_tail(brec), "launches": blaunches,
+    }
+    emit({"phase": "telemetry", "churn": churn_out, "boot": boot_out})
+    require_launches("telemetry boot", blaunches, BOOT_KERNELS)
+    if (ticks, conv) != (boot["ticks_run"], boot["converged"]) or state_diff(to_host(bfinal),
+                                                                             boot_final):
+        raise AssertionError("telemetry boot differs from the telemetry-off boot")
+    return {"churn": churn_out, "boot": boot_out}
+
+
+# ----------------------------------------------------------------- facade
+
+
+def facade_script(capacity: int, instances: int, stops: int, device, log_events: bool) -> dict:
+    """Drive ``SimNetwork``/``Kaboodle`` through one script of operations.
+
+    ``instances`` start and converge; ``stops`` of them (slots 1..stops)
+    stop, and the script ticks until every running instance has received
+    all their departures; the mesh re-converges; then slot 1 rejoins under
+    a new identity and the mesh re-converges. At each convergence every
+    running instance's ``fingerprint()`` must equal its row of the kernel
+    fingerprint (K1 over the identity views); the K1 launches of these
+    checks are not counted as the run's (``check_launches``). With
+    ``log_events`` the events every instance received are kept per tick."""
+    import torch
+
+    from kaboodle_tpu_torch import Kaboodle, SimNetwork
+    from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count
+
+    net = SimNetwork(capacity, cfg=all_kernels_cfg(), seed=11, device=device)
+    nodes = [Kaboodle(net, f"peer-{i}") for i in range(instances)]
+    queues = [(k.discover_peers(), k.discover_departures(), k.discover_fingerprint_changes())
+              for k in nodes]
+    departed = [set() for _ in nodes]
+    log = []
+    ticks = 0
+    deliver_s = 0.0
+    orig_tick, orig_deliver = net.tick, net._deliver_events
+
+    def deliver():
+        # The host's share of a facade tick: the row fetch and the event
+        # taps, after the tick's device work has finished.
+        nonlocal deliver_s
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_deliver()
+        deliver_s += time.perf_counter() - t0
+
+    net._deliver_events = deliver
+
+    def tick(n=1):
+        nonlocal ticks
+        for _ in range(n):
+            m = orig_tick(1)
+            ticks += 1
+            for i, (disc, dep, fps) in enumerate(queues):
+                departed[i].update(dep)
+                if log_events:
+                    log.append((i, list(disc), list(dep), list(fps)))
+                disc.clear()
+                dep.clear()
+                fps.clear()
+        return m
+
+    net.tick = tick
+
+    check_launches = dict.fromkeys(counts(), 0)
+
+    def check_fingerprints(where: str) -> int:
+        if net.state.id_view is None:
+            raise AssertionError("the facade's state has no identity views")
+        before = counts()
+        fp, _ = fused_fp_count(net.state.state, net.state.id_view)
+        fp = fp.cpu().numpy()
+        for k, v in counts().items():
+            check_launches[k] += v - before[k]
+        bad = [k.self_addr() for k in nodes
+               if k.is_running and int(fp[k.self_addr()]) & 0xFFFFFFFF != k.fingerprint()]
+        if bad:
+            raise AssertionError(f"facade {where}: fingerprint() != kernel row fp at {bad[:8]}")
+        return sum(k.is_running for k in nodes)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in nodes:
+        k.start()
+    boot_ticks = net.tick_until_converged(max_ticks=64)
+    checked = check_fingerprints("boot")
+    stopped = list(range(1, 1 + stops))
+    for i in stopped:
+        nodes[i].stop()
+    detect_ticks = 0
+    while not all(set(stopped) <= departed[i] for i, k in enumerate(nodes) if k.is_running):
+        if detect_ticks >= 400:
+            raise AssertionError("departures not delivered within 400 ticks")
+        net.tick()
+        detect_ticks += 1
+    reconverge_ticks = net.tick_until_converged(max_ticks=64)
+    checked += check_fingerprints("after departures")
+    nodes[1].set_identity(b"renamed")
+    nodes[1].start()
+    rename_ticks = net.tick_until_converged(max_ticks=400)
+    checked += check_fingerprints("after the rename")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"capacity": capacity, "instances": instances, "stopped": stops,
+            "ticks": ticks, "boot_ticks": boot_ticks, "departure_ticks": detect_ticks,
+            "reconverge_ticks": reconverge_ticks, "rename_reconverge_ticks": rename_ticks,
+            "fingerprints_checked": checked, "wall_s": wall, "wall_ms_per_tick": 1e3 * wall / ticks,
+            "deliver_events_ms_per_tick": 1e3 * deliver_s / ticks,
+            "check_launches": check_launches, "log": log}
+
+
+def phase_facade() -> dict:
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    big = facade_script(8192, 512, 32, "cuda", log_events=False)
+    launches = {k: v - big["check_launches"][k] for k, v in counts().items()}
+    big["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    big["launches"] = launches
+    del big["log"]
+    require_launches("facade", launches, CHURN_KERNELS)
+    small = {dev: facade_script(256, 64, 8, dev, log_events=True) for dev in ("cuda", "cpu")}
+    if small["cuda"]["log"] != small["cpu"]["log"]:
+        raise AssertionError("the capacity-256 facade script's events differ between card and CPU")
+    events = sum(len(d) + len(p) + len(f) for _, d, p, f in small["cpu"]["log"])
+    out = {"phase": "facade", "capacity_8192": big,
+           "capacity_256": {"ticks": small["cpu"]["ticks"], "events_equal": events,
+                            "wall_s_cuda": small["cuda"]["wall_s"],
+                            "wall_s_cpu": small["cpu"]["wall_s"]}}
+    emit(out)
+    return big
+
+
+# ----------------------------------------------------------------- checkpoint
+
+
+def phase_checkpoint(churn_final) -> dict:
+    """Save the churn state at tick 32, load it onto the card, run the last
+    32 ticks: bit-equal to the uninterrupted churn run (``churn_final``,
+    held on the host)."""
+    import torch
+
+    from kaboodle_tpu_torch import checkpoint
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sim import make_tick_fn
+
+    sc, make, _ = churn_case()
+    inputs = sc.build()
+    tick = make_tick_fn(all_kernels_cfg(), faulty=True)
+    half = sc.ticks // 2
+    st = make()
+    for t in range(half):
+        st, _ = tick(st, inputs.at(t))
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        path = Path(d) / "churn_tick32.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, st)
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        back = checkpoint.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    bad = state_diff(back, st)
+    if bad:
+        raise AssertionError(f"the loaded checkpoint differs from the saved state in {bad}")
+    del st
+    _cuda.reset_launches()
+    for t in range(half, sc.ticks):
+        back, _ = tick(back, inputs.at(t))
+    torch.cuda.synchronize()
+    launches = counts()
+    out = {"phase": "checkpoint", "n": sc.n, "at_tick": half, "archive_bytes": size,
+           "save_s": save_s, "load_s": load_s, "launches_resumed": launches}
+    emit(out)
+    require_launches("checkpoint resume", launches, CHURN_KERNELS)
+    bad = state_diff(to_host(back), churn_final)
+    if bad:
+        raise AssertionError(f"the resumed churn differs from the uninterrupted run in {bad}")
     return out
 
 
@@ -490,11 +872,21 @@ def main() -> int:
           "ptxas": {name: ptxas_summary(log) for name, log in _cuda.build_logs.items()}})
 
     kern = phase_kernels()
-    boot = phase_boot()
-    churn, final = phase_churn()
+    boot, boot_final = phase_boot()
+    boot_final = to_host(boot_final)
+    churn, final, churn_metrics = phase_churn()
     churn_state = phase_kernels_churn_state(final)
-    del final
+    final, churn_metrics = to_host(final), to_host(churn_metrics)
+    tele = phase_telemetry(churn, final, churn_metrics, boot, boot_final)
+    del boot_final, churn_metrics
     phase_parity()
+    facade = phase_facade()
+    ckpt = phase_checkpoint(final)
+    del final
+    runs = {"boot": boot["launches"], "churn": churn["launches"],
+            "telemetry_churn": tele["churn"]["launches"],
+            "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
+            "checkpoint_resume": ckpt["launches_resumed"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]
@@ -510,8 +902,9 @@ def main() -> int:
         mine = [c for c in cases if c["kernel"] == name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": boot["launches"][name] + churn["launches"][name],
+            "launches": sum(r[name] for r in runs.values()),
             "launches_boot": boot["launches"][name], "launches_churn": churn["launches"][name],
+            "launches_by_run": {run: r[name] for run, r in runs.items()},
             "mismatches": sum(c["mismatches"] for c in mine),
             "max_abs_err": max((c["max_abs_err"] for c in mine), default=0),
             "ms": top["kernel_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],

@@ -1,0 +1,126 @@
+"""Checkpoint / resume of simulator state, in the JAX package's ``.npz`` schema.
+
+A checkpoint is one ``.npz`` with one entry per ``MeshState`` field plus a
+format version (``__version__``) and, optionally, a writer stamp
+(``__owner__``). The entries are the JAX package's leaf layout
+(``sim/state.py::state_to_numpy``): uint32 fields as uint32, the timer in
+its own dtype (int16 timers stay int16), optional fields (``latency``,
+``id_view``) absent when the state has none. So an archive written by
+``kaboodle_tpu.checkpoint.save`` resumes here bit-identically, and one
+written here resumes in the JAX package. Every array round-trips exactly,
+the PRNG key included, so a resumed run is indistinguishable from an
+uninterrupted one.
+
+Every failure to read an archive back -- missing, truncated, not a zip,
+a corrupt member, a wrong version or owner, missing fields -- raises
+:class:`~kaboodle_tpu_torch.errors.CheckpointError`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import zipfile
+
+import numpy as np
+
+from kaboodle_tpu_torch.errors import CheckpointError
+from kaboodle_tpu_torch.sim.state import MeshState, state_from_numpy, state_to_numpy
+
+_FORMAT_VERSION = 1
+
+
+def _optional_fields() -> set[str]:
+    """MeshState fields that may be ``None`` (default-None dataclass fields)."""
+    return {f.name for f in dataclasses.fields(MeshState) if f.default is None}
+
+
+@contextlib.contextmanager
+def _open_npz(path):
+    """``np.load`` with the failure modes of a long-running service -- file
+    missing, truncated mid-write, not a zip, a zip with a corrupt member --
+    raised as :class:`CheckpointError`."""
+    try:
+        z = np.load(path)
+    except FileNotFoundError as e:
+        raise CheckpointError(f"checkpoint missing: {path}") from e
+    except (zipfile.BadZipFile, OSError, EOFError, ValueError) as e:
+        raise CheckpointError(f"checkpoint unreadable ({e}): {path}") from e
+    try:
+        with z:
+            yield z
+    except CheckpointError:
+        raise
+    except (zipfile.BadZipFile, OSError, EOFError, KeyError, ValueError) as e:
+        # A member that decompresses short or fails its CRC surfaces here,
+        # on the array read, not at open time.
+        raise CheckpointError(f"checkpoint corrupt ({e}): {path}") from e
+
+
+def _savez_atomic(path, arrays: dict) -> None:
+    """fsync-then-rename npz write: a reader sees either the complete
+    previous file or the complete new one, never a truncated archive."""
+    path = os.fspath(path)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def save(path, state: MeshState, atomic: bool = False, owner: str | None = None) -> None:
+    """Write ``state`` to ``path`` (.npz), fetching its tensors to the host.
+
+    Fields that are ``None`` are absent from the archive. ``atomic=True``
+    writes through a same-directory temp file with fsync-then-rename.
+    ``owner`` stamps a writer identity into the archive, which
+    ``load(expect_owner=...)`` enforces."""
+    arrays = {name: a for name, a in state_to_numpy(state).items() if a is not None}
+    arrays["__version__"] = np.int32(_FORMAT_VERSION)
+    if owner is not None:
+        arrays["__owner__"] = np.frombuffer(owner.encode("utf-8"), dtype=np.uint8)
+    if atomic:
+        _savez_atomic(path, arrays)
+    else:
+        np.savez(path, **arrays)
+
+
+def checkpoint_owner(path) -> str | None:
+    """The writer identity stamped by ``save(owner=...)``, or ``None``."""
+    with _open_npz(path) as z:
+        if "__owner__" not in z.files:
+            return None
+        return bytes(np.asarray(z["__owner__"])).decode("utf-8")
+
+
+def load(path, expect_owner: str | None = None, device=None) -> MeshState:
+    """Read a checkpoint onto the card, or onto ``device`` when given.
+
+    Optional fields absent from the archive restore as ``None``.
+    ``expect_owner`` enforces the writer stamp: a mismatching or missing
+    stamp raises. Every failure raises :class:`CheckpointError`."""
+    with _open_npz(path) as z:
+        if "__version__" not in z.files:
+            raise CheckpointError(f"not a kaboodle checkpoint (no version entry): {path}")
+        version = int(z["__version__"])
+        if version != _FORMAT_VERSION:
+            raise CheckpointError(f"unsupported checkpoint version {version}")
+        if expect_owner is not None:
+            if "__owner__" not in z.files:
+                raise CheckpointError(
+                    f"checkpoint has no owner stamp (expected {expect_owner!r}): {path}"
+                )
+            got = bytes(np.asarray(z["__owner__"])).decode("utf-8")
+            if got != expect_owner:
+                raise CheckpointError(
+                    f"checkpoint owned by alien engine {got!r} (expected "
+                    f"{expect_owner!r}): {path}"
+                )
+        fields = {f.name for f in dataclasses.fields(MeshState)}
+        missing = fields - set(z.files) - _optional_fields()
+        if missing:
+            raise CheckpointError(f"checkpoint missing fields: {sorted(missing)}")
+        leaves = {name: z[name] for name in fields if name in z.files}
+    return state_from_numpy(leaves, device=device)

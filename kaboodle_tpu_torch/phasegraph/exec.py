@@ -33,10 +33,19 @@ The three fused kernels sit where the JAX tick calls its Pallas kernels:
 program's ping-target draw (``cfg.use_pallas_oldest_k``). Unlike the JAX
 package there is no ``N % 128`` guard: a flag that is on means the kernel
 (on a CUDA tensor) or its plain version (on a CPU tensor), for any N.
+
+``telemetry=True`` builds the same tick with protocol counters added
+(``telemetry/counters.py``): it returns ``(state, TickTelemetry(metrics,
+counters, fp))``, with the JAX package's counter definitions bit for bit.
+Every counter is read from masks and states the tick computes anyway, inside
+gates the tick takes anyway, so the telemetry build adds no host sync and the
+state trajectory is the same with telemetry on or off. A ``telemetry=False``
+build computes none of it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -63,6 +72,7 @@ from kaboodle_tpu_torch.ops.sampling import (
 from kaboodle_tpu_torch.phasegraph import rng as pg_rng
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs, TickMetrics
 from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
+from kaboodle_tpu_torch.telemetry.counters import RECORD_BYTES, ProtocolCounters, TickTelemetry
 
 INF = torch.iinfo(torch.int32).max
 _NAN = float("nan")
@@ -140,7 +150,8 @@ def make_tick_fn(
     cfg: SwimConfig,
     faulty: bool = True,
     program: str | None = None,
-) -> Callable[[MeshState, TickInputs], tuple[MeshState, TickMetrics]]:
+    telemetry: bool = False,
+) -> Callable[[MeshState, TickInputs], tuple[MeshState, TickMetrics | TickTelemetry]]:
     """Build the tick function for a protocol config.
 
     ``faulty=False`` leaves out churn, partitions and drops (the fault-free
@@ -148,6 +159,8 @@ def make_tick_fn(
     per-tick dispatch, ``"full"`` the full program alone, ``"fused"`` the
     fused program alone with no dispatch guard -- the caller then owns the
     precondition that no tick has a Join broadcast or suspicion activity.
+    ``telemetry=True`` returns ``(state, TickTelemetry)`` instead of
+    ``(state, TickMetrics)`` (module docstring).
     """
     if program not in (None, "full", "fused"):
         raise ValueError(f"unknown program {program!r}")
@@ -284,20 +297,39 @@ def make_tick_fn(
         ).to(torch.int32)
 
         def _anti_entropy(S, T, lat, idv, partner, del_kpr, del_rep, fp_g, n_g):
-            """Call-G apply (kaboodle.rs:707-740), shared by both programs."""
+            """Call-G apply (kaboodle.rs:707-740), shared by both programs.
+
+            The telemetry build also returns the records in the replies SENT
+            (int64 []): a partner answers every delivered request (``del_kpr``
+            gates the send, ``del_rep`` only the reply's delivery), and the
+            share excludes the requester, subtracted per edge."""
             if not bool(del_kpr.any()):
+                if telemetry:
+                    return S, T, lat, idv, fp_g, n_g, torch.zeros((), dtype=torch.int64, device=dev)
                 return S, T, lat, idv, fp_g, n_g
             mark_g = _col_mark(idx, partner, del_kpr)  # partner marks requester
             S, T, lat, idv = apply_marks(S, T, lat, idv, mark_g)
             # The reply share is taken before the requester-marks-partner write.
             S_share, T_share = S, T
+
+            def share_plane():
+                return (S_share == KNOWN) & ~eye & (
+                    (t - T_share.to(torch.int32)) < cfg.max_peer_share_age_ticks
+                )
+
+            share_f = None
+            if telemetry:
+                pc = partner.clamp(min=0).long()
+                share_f = share_plane()
+                share_cnt = share_f.sum(dim=-1, dtype=torch.int32)
+                own = share_f[pc, idx.long()].to(torch.int32)  # the requester's own cell
+                ae_records = torch.where(del_kpr, share_cnt[pc] - own, 0).sum(dtype=torch.int64)
             mark_rep = _row_mark(idx, partner, del_rep)  # requester marks partner
             S = torch.where(mark_rep, KNOWN, S)
             T = torch.where(mark_rep, t, T)
             if bool(del_rep.any()):
-                share_f = (S_share == KNOWN) & ~eye & (
-                    (t - T_share.to(torch.int32)) < cfg.max_peer_share_age_ticks
-                )
+                if share_f is None:
+                    share_f = share_plane()
                 srow = share_f[partner.clamp(min=0).long()]
                 rep_ins = del_rep[:, None] & srow & ~eye & ~(S > 0)
                 S = torch.where(rep_ins, KNOWN, S)
@@ -305,6 +337,8 @@ def make_tick_fn(
                 if has_idv:
                     idv = torch.where(rep_ins, id_row, idv)
             fp_f, n_f = fp_count(S, idv)
+            if telemetry:
+                return S, T, lat, idv, fp_f, n_f, ae_records
             return S, T, lat, idv, fp_f, n_f
 
         def _ae_phase01(fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt):
@@ -325,8 +359,15 @@ def make_tick_fn(
             peer1 = torch.where(prio_d <= prio_m, ping_tgt, man_tgt)
             return prio0, peer0, prio1, peer1
 
-        def _finish(S, T, lat, idv, kpr_partner_new, fp_g, n_g, fp_f, n_f, msgs):
-            """Metrics + next-state assembly, shared by both programs."""
+        def _finish(S, T, lat, idv, kpr_partner_new, fp_g, n_g, fp_f, n_f, msgs,
+                    counters=None):
+            """Metrics + next-state assembly, shared by both programs.
+
+            In the telemetry build ``counters`` carries the program's event
+            counts; the two pre/post-state counters (suspicions refuted:
+            WaitingForIndirectPing at S0 and Known now; armed timers: waiting
+            cells of alive rows at tick end) are filled in here, and ``fp_f``
+            rides out as the flight recorder's digest plane."""
             converged, fpa_min, fpa_max, n_alive = fingerprint_agreement(alive, fp_f)
             agree = (alive & (fp_f == fpa_min)).sum(dtype=torch.int32)
             denom = n_alive.clamp(min=1)
@@ -344,7 +385,24 @@ def make_tick_fn(
                 fingerprint_min=fpa_min,
                 fingerprint_max=fpa_max,
             )
+            if telemetry:
+                counters = dataclasses.replace(
+                    counters,
+                    suspicions_refuted=((S0 == WAITING_FOR_INDIRECT_PING) & (S == KNOWN)).sum(
+                        dtype=torch.int32),
+                    armed_timers=(alive[:, None] & (
+                        (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING))).sum(
+                        dtype=torch.int32),
+                )
+                return new_state, TickTelemetry(metrics=metrics, counters=counters, fp=fp_f)
             return new_state, metrics
+
+        def _i32(x):
+            return x.sum(dtype=torch.int32)
+
+        def _gossip_bytes(records):
+            """RECORD_BYTES x records mod 2^32, as int32 bits (int64 ``records``)."""
+            return wrap32(RECORD_BYTES * records)
 
         def _rest():
             """The full program's tail: A2 suspicion handling onward."""
@@ -386,8 +444,13 @@ def make_tick_fn(
                 )
                 return r | (insta_remove[:, None] & jstar_cell)
 
+            deaths = zero32
             if bool(any_a2):
                 rem = _a2_rem()
+                if telemetry:
+                    # The WFIP timeouts and the insta-removals (each a timed-out
+                    # WaitingForPing cell) are disjoint: rem counts both.
+                    deaths = _i32(rem)
                 S_ = torch.where(rem, 0, S_)
                 if has_lat:
                     lat_ = torch.where(rem, _NAN, lat_)
@@ -443,21 +506,40 @@ def make_tick_fn(
 
             # Join responses (kaboodle.rs:333-392) and the gossip union.
             reply_del = gossip = None
+            join_records = torch.zeros((), dtype=torch.int64, device=dev) if telemetry else None
             if cfg.join_broadcast_enabled and joining:
                 n_after = row_count_a[:, None] + torch.cumsum(is_new_ro, dim=1, dtype=torch.int32)
                 reply_p = broadcast_reply_prob(n_after)
                 bern = bernoulli_matrix(key_bern, reply_p, (n, n), det)
                 reply = is_new_ro & bern  # [r, o]
                 reply_del = reply & ok_outer()
+                base_c = None  # the D5-capped start-of-round map
+                if telemetry:
+                    # Records in the join-response shares SENT (``reply``, not
+                    # ``reply_del``). Uncapped, the share to joiner o is r's
+                    # sequential map at reply time, of size ``n_after``; over
+                    # the D5 cap it is the capped base plus this round's
+                    # joiners not already in it.
+                    rec_cnt = n_after
+                    if cfg.max_share_peers:
+                        cap = cfg.max_share_peers
+                        base_c = member_a & (
+                            torch.cumsum(member_a, dim=1, dtype=torch.int32) <= cap)
+                        clen = row_count_a.clamp(max=cap)[:, None] + torch.cumsum(
+                            Jm & ~base_c, dim=1, dtype=torch.int32)
+                        rec_cnt = torch.where(n_after <= cap, n_after, clen)
+                    join_records = torch.where(reply, rec_cnt, 0).sum(dtype=torch.int64)
                 if bool(reply_del.any()):
                     share_base = member_a
                     if cfg.max_share_peers and n > cfg.max_share_peers:
                         # D5: cap to the lowest-index members of the map.
-                        within_cap = (
-                            torch.cumsum(member_a, dim=1, dtype=torch.int32)
-                            <= cfg.max_share_peers
-                        )
-                        share_base = member_a & within_cap
+                        if base_c is None:
+                            within_cap = (
+                                torch.cumsum(member_a, dim=1, dtype=torch.int32)
+                                <= cfg.max_share_peers
+                            )
+                            base_c = member_a & within_cap
+                        share_base = base_c
                     term1 = _bool_matmul(reply_del.T, share_base)  # [o, j]
                     term2 = _bool_matmul(reply_del.T, Jm)
                     tri = idx[None, :] <= idx[:, None]  # j <= o
@@ -563,7 +645,7 @@ def make_tick_fn(
             del_kpr = has_req & ok_edge(idx, partner)
             del_rep = del_kpr & ok_edge(partner, idx)  # partner -> requester
 
-            S_, T_, lat_, idv_, fp_f, n_f = _anti_entropy(
+            S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
             )
             msgs = sum(
@@ -573,9 +655,23 @@ def make_tick_fn(
             )
             if reply_del is not None:
                 msgs = msgs + reply_del.sum(dtype=torch.int64)
+            counters = None
+            if telemetry:
+                counters = ProtocolCounters(
+                    pings_sent=_i32(has_ping) + _i32(man_tgt >= 0) + _i32(del_pr),
+                    acks_sent=_i32(ok_ping) + _i32(ok_man) + _i32(del_pping) + _i32(fwd)
+                    + _i32(fwd_c),
+                    ping_reqs_sent=_i32(proxies_valid),
+                    suspicions_raised=_i32(escalate),
+                    suspicions_refuted=zero32,  # filled by _finish
+                    deaths_declared=deaths,
+                    joins_disseminated=_i32(Jm) if joining else zero32,
+                    gossip_bytes=_gossip_bytes(ae[0] + join_records),
+                    armed_timers=zero32,  # filled by _finish
+                )
             return _finish(
                 S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
-                fp_g, n_g, fp_f, n_f, msgs,
+                fp_g, n_g, fp_f, n_f, msgs, counters,
             )
 
         def _fast():
@@ -650,16 +746,31 @@ def make_tick_fn(
             del_kpr = has_req & ok_edge(idx, partner)
             del_rep = del_kpr & ok_edge(partner, idx)
 
-            S_, T_, lat_, idv_, fp_f, n_f = _anti_entropy(
+            S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
             )
             msgs = sum(
                 x.sum(dtype=torch.int64)
                 for x in (ok_ping, ok_man, del_ack, del_ack_man, del_kpr, del_rep)
             )
+            counters = None
+            if telemetry:
+                # No escalation, join or A2 removal on these ticks: the
+                # counters those feed are structurally zero.
+                counters = ProtocolCounters(
+                    pings_sent=_i32(has_ping) + _i32(man_tgt >= 0),
+                    acks_sent=_i32(ok_ping) + _i32(ok_man),
+                    ping_reqs_sent=zero32,
+                    suspicions_raised=zero32,
+                    suspicions_refuted=zero32,  # filled by _finish
+                    deaths_declared=zero32,
+                    joins_disseminated=zero32,
+                    gossip_bytes=_gossip_bytes(ae[0]),
+                    armed_timers=zero32,  # filled by _finish
+                )
             return _finish(
                 S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
-                fp_g, n_g, fp_f, n_f, msgs,
+                fp_g, n_g, fp_f, n_f, msgs, counters,
             )
 
         # ---- dispatch ------------------------------------------------------

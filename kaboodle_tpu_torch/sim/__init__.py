@@ -16,9 +16,12 @@ _LAZY = {
     "make_tick_fn": "kaboodle_tpu_torch.sim.kernel",
     "simulate": "kaboodle_tpu_torch.sim.runner",
     "run_until_converged": "kaboodle_tpu_torch.sim.runner",
+    "simulate_with_telemetry": "kaboodle_tpu_torch.sim.runner",
+    "run_until_converged_telemetry": "kaboodle_tpu_torch.sim.runner",
     "state_agreement": "kaboodle_tpu_torch.sim.runner",
     "Scenario": "kaboodle_tpu_torch.sim.scenario",
     "baseline_scenario": "kaboodle_tpu_torch.sim.scenario",
+    "all_fault_paths_scenario": "kaboodle_tpu_torch.sim.scenario",
 }
 
 __all__ = list(_LAZY)

@@ -125,6 +125,27 @@ class Scenario:
         )
 
 
+def all_fault_paths_scenario(
+    n: int, ticks: int = 1, drop_rate: float = 0.1, revive: bool = True
+) -> Scenario:
+    """Every fault path live in one schedule: kill, revive/restart, a 2-way
+    partition over the first half, random drop, and a manual ping per tick.
+
+    ``revive=False`` drops only the revive event (whose rejoin runs the
+    join-gossip path). The same schedule as the JAX package's."""
+    if n < 4:
+        raise ValueError("need n >= 4 to exercise every path")
+    sc = Scenario(n, ticks).kill_at(0, [1]).drop(drop_rate)
+    if revive:
+        # On a 1-tick run reviving the killed peer would cancel the kill
+        # (revive wins in the tick), so restart a live peer instead.
+        sc.revive_at(ticks - 1, [3] if ticks == 1 else [1])
+    sc.partition_at(0, np.arange(n, dtype=np.int32) % 2, until=max(1, ticks // 2))
+    for t in range(ticks):
+        sc.manual_ping_at(t, 0, 2)
+    return sc
+
+
 def baseline_scenario(config: int, n: int | None = None, ticks: int | None = None,
                       seed: int = 0) -> Scenario:
     """The five configs of BASELINE.json as scenarios (1-based).

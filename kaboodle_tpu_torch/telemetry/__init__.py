@@ -1,0 +1,49 @@
+"""The telemetry plane of the tick: protocol counters and the flight recorder.
+
+- **Counters** (:mod:`telemetry.counters`): the ``telemetry=True`` build of
+  the tick (``phasegraph/exec.py``) returns a :class:`ProtocolCounters` of
+  per-tick protocol reductions beside its metrics, as pure derived values:
+  the state trajectory is bit-identical with telemetry on or off.
+- **Flight recorder** (:mod:`telemetry.recorder`): a fixed-shape ring on
+  the device holding the last K ticks' counters and per-member fingerprint
+  digests, fetched to the host once by :func:`recorder_rows`.
+
+The JAX package's exporters (``manifest``, ``trace``, ``summary``) are not
+ported yet.
+"""
+
+from kaboodle_tpu_torch.telemetry.counters import (
+    FIELDS,
+    RECORD_BYTES,
+    ProtocolCounters,
+    TickTelemetry,
+    add_counters,
+    counters_table,
+    counters_totals,
+    leap_counters,
+    scale_counters,
+    zero_counters,
+)
+from kaboodle_tpu_torch.telemetry.recorder import (
+    FlightRecorder,
+    init_recorder,
+    record_tick,
+    recorder_rows,
+)
+
+__all__ = [
+    "FIELDS",
+    "RECORD_BYTES",
+    "ProtocolCounters",
+    "TickTelemetry",
+    "add_counters",
+    "counters_table",
+    "counters_totals",
+    "leap_counters",
+    "scale_counters",
+    "zero_counters",
+    "FlightRecorder",
+    "init_recorder",
+    "record_tick",
+    "recorder_rows",
+]

@@ -1,0 +1,187 @@
+"""The port's ``.npz`` checkpoints against the JAX package's, both ways.
+
+An archive written by either package loads in the other with every leaf
+and dtype equal (uint32 words as uint32, int16 timers as int16, optional
+planes absent), and a run resumed from it equals the uninterrupted run.
+The guards raise ``CheckpointError`` in the cases the JAX package raises
+its own.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kaboodle_tpu import checkpoint as jckpt
+from kaboodle_tpu import errors as jerrors
+from kaboodle_tpu.config import SwimConfig as JaxSwimConfig
+from kaboodle_tpu.sim import state as jstate
+from kaboodle_tpu.sim.kernel import make_tick_fn as jax_make_tick_fn
+from kaboodle_tpu_torch import checkpoint
+from kaboodle_tpu_torch.config import SwimConfig
+from kaboodle_tpu_torch.errors import CheckpointError, KaboodleError
+from kaboodle_tpu_torch.sim import state as tstate
+from kaboodle_tpu_torch.sim.kernel import make_tick_fn
+
+CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _leaves(obj) -> dict:
+    return {f.name: None if getattr(obj, f.name) is None else np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def _assert_same(want: dict, got: dict, where: str, latency_rtol: float = 0.0):
+    for k, w in want.items():
+        g = got[k]
+        if w is None or g is None:
+            assert w is None and g is None, f"{where}: {k}"
+            continue
+        assert w.dtype == g.dtype and w.shape == g.shape, f"{where}: {k} {w.dtype} {g.dtype}"
+        if k == "latency":
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=f"{where}: {k}")
+            np.testing.assert_allclose(g, w, rtol=latency_rtol, err_msg=f"{where}: {k}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{where}: {k}")
+
+
+def _jax_state(n, latency, views, int16, seed=13):
+    return jstate.init_state(n, seed=seed, track_latency=latency, instant_identity=not views,
+                             timer_dtype=jnp.int16 if int16 else jnp.int32)
+
+
+def test_jax_archive_resumes_in_the_port(tmp_path):
+    """7 JAX ticks, a JAX archive, 9 port ticks from it == 9 more JAX ticks."""
+    n, cfg = 24, JaxSwimConfig()
+    jtick = jax.jit(jax_make_tick_fn(cfg, faulty=False))
+    idle = jstate.idle_inputs(n)
+    st = _jax_state(n, True, True, False)
+    for _ in range(7):
+        st, _ = jtick(st, idle)
+    path = tmp_path / "jax.npz"
+    jckpt.save(path, st)
+    resumed = checkpoint.load(path, device=CPU)
+    _assert_same(_leaves(st), tstate.state_to_numpy(resumed), "loaded")
+    ttick = make_tick_fn(SwimConfig(), faulty=False)
+    tidle = tstate.idle_inputs(n, device=CPU)
+    for _ in range(9):
+        st, _ = jtick(st, idle)
+        resumed, _ = ttick(resumed, tidle)
+    _assert_same(_leaves(st), tstate.state_to_numpy(resumed), "resumed", latency_rtol=1e-5)
+
+
+def test_port_archive_loads_in_jax(tmp_path):
+    """A port archive (after a churn run, owner-stamped, atomic) loads in
+    JAX, and both continue to the same state."""
+    n = 32
+    jst = _jax_state(n, True, True, True, seed=4)
+    tst = tstate.state_from_numpy(_leaves(jst), device=CPU)
+    ttick = make_tick_fn(SwimConfig(deterministic=True))
+    from kaboodle_tpu.sim import scenario as jscen
+
+    inp = tstate.inputs_from_numpy(_leaves(jscen.baseline_scenario(3, n=n, ticks=10).build()),
+                                   device=CPU)
+    for t in range(10):
+        tst, _ = ttick(tst, inp.at(t))
+    path = tmp_path / "port.npz"
+    checkpoint.save(path, tst, atomic=True, owner="engine-a")
+    assert checkpoint.checkpoint_owner(path) == jckpt.checkpoint_owner(path) == "engine-a"
+    back = jckpt.load(path, expect_owner="engine-a")
+    _assert_same(tstate.state_to_numpy(tst), _leaves(back), "loaded in jax")
+    jtick = jax.jit(jax_make_tick_fn(JaxSwimConfig(deterministic=True), faulty=False))
+    ttick = make_tick_fn(SwimConfig(deterministic=True), faulty=False)
+    tidle = tstate.idle_inputs(n, device=CPU)
+    for _ in range(4):
+        back, _ = jtick(back, jstate.idle_inputs(n))
+        tst, _ = ttick(tst, tidle)
+    _assert_same(_leaves(back), tstate.state_to_numpy(tst), "continued", latency_rtol=1e-5)
+
+
+@pytest.mark.parametrize("latency,views", [(True, True), (True, False), (False, True),
+                                           (False, False)])
+@pytest.mark.parametrize("int16", [False, True])
+def test_round_trips_and_schema(tmp_path, latency, views, int16):
+    """Every lean/full combination, int16 and int32 timers: the port's
+    archive has the JAX archive's entries, names and dtypes, and each
+    package reads the other's back exactly."""
+    jst = _jax_state(12, latency, views, int16, seed=7)
+    tst = tstate.state_from_numpy(_leaves(jst), device=CPU)
+    tpath, jpath = tmp_path / "t.npz", tmp_path / "j.npz"
+    checkpoint.save(tpath, tst)
+    jckpt.save(jpath, jst)
+    with np.load(tpath) as t, np.load(jpath) as j:
+        assert sorted(t.files) == sorted(j.files)
+        for name in j.files:
+            assert t[name].dtype == j[name].dtype and t[name].shape == j[name].shape, name
+            np.testing.assert_array_equal(t[name], j[name], err_msg=name)
+        assert ("latency" in t.files) == latency and ("id_view" in t.files) == views
+    _assert_same(_leaves(jst), tstate.state_to_numpy(checkpoint.load(jpath, device=CPU)), "j->t")
+    _assert_same(tstate.state_to_numpy(tst), _leaves(jckpt.load(tpath)), "t->j")
+    back = checkpoint.load(tpath, device=CPU)
+    assert back.timer.dtype == (torch.int16 if int16 else torch.int32)
+    _assert_same(tstate.state_to_numpy(tst), tstate.state_to_numpy(back), "t->t")
+
+
+def _raises_in_both(path, **kw):
+    with pytest.raises(CheckpointError):
+        checkpoint.load(path, device=CPU, **kw)
+    with pytest.raises(jerrors.CheckpointError):
+        jckpt.load(path, **kw)
+
+
+def test_guards_raise_checkpoint_error(tmp_path):
+    """Version, missing fields, torn and alien files, a missing file, owner
+    mismatch and a missing owner stamp; the atomic write leaves one file."""
+    st = tstate.init_state(8, seed=1, device=CPU)
+    bad = tmp_path / "bad.npz"
+    np.savez(bad, __version__=np.int32(99))
+    _raises_in_both(bad)
+    fields_missing = tmp_path / "trunc.npz"
+    np.savez(fields_missing, __version__=np.int32(1), state=np.zeros((2, 2)))
+    _raises_in_both(fields_missing)
+    no_version = tmp_path / "noversion.npz"
+    np.savez(no_version, state=np.zeros((2, 2)))
+    _raises_in_both(no_version)
+
+    good = tmp_path / "good.npz"
+    checkpoint.save(good, st)
+    data = good.read_bytes()
+    torn = tmp_path / "torn.npz"
+    torn.write_bytes(data[: len(data) // 3])
+    _raises_in_both(torn)
+    alien = tmp_path / "alien.npz"
+    alien.write_bytes(b"definitely not a zip archive\n" * 4)
+    _raises_in_both(alien)
+    _raises_in_both(tmp_path / "missing.npz")
+    with pytest.raises(CheckpointError):
+        checkpoint.checkpoint_owner(tmp_path / "missing.npz")
+
+    _raises_in_both(good, expect_owner="engine-a")  # no stamp
+    assert checkpoint.checkpoint_owner(good) is None
+    owned = tmp_path / "owned.npz"
+    checkpoint.save(owned, st, owner="engine-b")
+    _raises_in_both(owned, expect_owner="engine-a")
+    assert checkpoint.load(owned, expect_owner="engine-b", device=CPU).n == 8
+    assert issubclass(CheckpointError, KaboodleError)
+
+    atomic_dir = tmp_path / "atomic"
+    atomic_dir.mkdir()
+    path = atomic_dir / "a.npz"
+    checkpoint.save(path, st, atomic=True)
+    assert list(atomic_dir.iterdir()) == [path]
+    _assert_same(tstate.state_to_numpy(st),
+                 tstate.state_to_numpy(checkpoint.load(path, device=CPU)), "atomic")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            checkpoint.load(path)

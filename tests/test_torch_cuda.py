@@ -120,3 +120,82 @@ def test_tick_on_card_equals_cpu(card, det):
                 np.testing.assert_allclose(g, w, rtol=1e-5)
             elif w is not None:
                 np.testing.assert_array_equal(g, w, err_msg=f"tick {t} {k}")
+
+
+@pytest.mark.parametrize("det", [False, True])
+def test_telemetry_tick_on_card_equals_cpu(card, det):
+    """The telemetry build on the card (kernels) against the CPU (plain
+    versions): state, metrics, every counter and the digest plane, per tick."""
+    cfg = SwimConfig(deterministic=det, use_pallas_fp=True, use_pallas_oldest_k=True,
+                     use_pallas_suspicion=True)
+    sc = baseline_scenario(3, n=256, ticks=12, seed=4)
+    tick = make_tick_fn(cfg, telemetry=True)
+    sides = {d: (init_state(256, seed=1, alive=sc.initial_alive(), device=d), sc.build(d))
+             for d in ("cuda", "cpu")}
+    _cuda.reset_launches()
+    for t in range(sc.ticks):
+        out = {}
+        for d, (st, inp) in sides.items():
+            st, tel = tick(st, inp.at(t))
+            sides[d] = (st, inp)
+            out[d] = {**state_to_numpy(st), **metrics_to_numpy(tel.metrics), "fp": tel.fp.cpu(),
+                      **{f"c_{k}": v.cpu() for k, v in vars(tel.counters).items()}}
+        for k, w in out["cpu"].items():
+            g = out["cuda"][k]
+            if k == "latency":
+                np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+                np.testing.assert_allclose(g, w, rtol=1e-5)
+            elif isinstance(w, torch.Tensor):
+                assert torch.equal(g, w), f"tick {t} {k}"
+            elif w is not None:
+                np.testing.assert_array_equal(g, w, err_msg=f"tick {t} {k}")
+    assert all(_cuda.launches[k] > 0 for k in ("fused_fp_idv", "fused_suspicion",
+                                                 "fused_oldest_k"))
+
+
+def _facade_script(device) -> list:
+    """A facade run (start, converge, stop, set_identity, re-converge) with
+    what every instance saw after each tick."""
+    from kaboodle_tpu_torch import Kaboodle, SimNetwork
+
+    cfg = SwimConfig(use_pallas_fp=True, use_pallas_oldest_k=True, use_pallas_suspicion=True)
+    net = SimNetwork(64, cfg=cfg, seed=5, device=device)
+    nodes = [Kaboodle(net, f"peer-{i}") for i in range(24)]
+    queues = [(k.discover_peers(), k.discover_departures(), k.discover_fingerprint_changes())
+              for k in nodes]
+    log = []
+    orig = net.tick
+
+    def tick(ticks=1):
+        for _ in range(ticks):
+            m = orig(1)
+            log.append(([tuple(list(q) for q in qs) for qs in queues],
+                        [k.fingerprint() for k in nodes], state_to_numpy(net.state)))
+            for qs in queues:
+                for q in qs:
+                    q.clear()
+        return m
+
+    net.tick = tick
+    for k in nodes:
+        k.start()
+    net.tick_until_converged(max_ticks=32)
+    for k in nodes[:4]:
+        k.stop()
+    net.tick(12)
+    nodes[5].set_identity(b"renamed")
+    net.tick(3)
+    return log
+
+
+def test_facade_on_card_equals_cpu(card):
+    want, got = _facade_script("cpu"), _facade_script("cuda")
+    assert len(got) == len(want)
+    for t, ((we, wf, ws), (ge, gf, gs)) in enumerate(zip(want, got)):
+        assert ge == we and gf == wf, f"tick {t}"
+        for k, w in ws.items():
+            if k == "latency":
+                np.testing.assert_array_equal(np.isnan(gs[k]), np.isnan(w))
+                np.testing.assert_allclose(gs[k], w, rtol=1e-5)
+            elif w is not None:
+                np.testing.assert_array_equal(gs[k], w, err_msg=f"tick {t} {k}")
