@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs nine phases, each printing one JSON line; any failure raises and the
+runs twelve phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -49,11 +49,31 @@ script exits non-zero without the result line:
 9. checkpoint -- the churn state at tick 32 saved to ``.npz`` in a
                temporary directory of the checkout, loaded onto the card,
                run 32 more ticks: bit-equal to the uninterrupted churn run.
+10. chunked_parity -- the row-blocked tick against the dense tick (all kernel
+               flags) at N = 16,384, lean, int16, deterministic mode: a
+               broadcast boot tick (blocked: ``boot_union=True``), then 8
+               faulty ticks with kills, a partition window and manual pings;
+               state and integer metrics bit-equal per tick, the float
+               metrics within a relative 1e-6. Then the blocked tick on the
+               card against the CPU at N = 512 under config 5's drop with
+               kills and a revive, both modes, plain and telemetry builds:
+               every leaf and counter equal (``latency`` rtol 1e-5).
+11. chunked_boot -- BASELINE config 4 at full width: N = 65,536, lean, int16,
+               random mode, tick 0 through the blocked tick's closed-form
+               union, then ``converge_loop``; converged, every sampled row
+               knows every peer; the peak right after ``init_state``.
+12. chunked_faulty -- BASELINE config 5 at full width, the first ``T5`` of
+               its 96 ticks (10 % drop, the partition window, the heal):
+               every tick delivers messages, the alive mask is the
+               scenario's, every alive peer knows itself, the planes stay
+               contiguous. Agreement is not asserted: it cannot hold while
+               drop is on.
 
 Launch counts are reset just before each main-path run (boot, churn, the
-two telemetry runs, the facade at capacity 8,192 and the checkpoint's
-resumed ticks) and read just after: each kernel of the path must have
-launched. The last lines are the card's name and power limit, the
+two telemetry runs, the facade at capacity 8,192, the checkpoint's
+resumed ticks and the two blocked runs) and read just after: each kernel
+of the dense path must have launched; the blocked tick runs no kernel (as
+in the JAX package), so its runs count 0 and none is required of them. The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` summary (per kernel the numbers of the shape it is
 launched at most, every timed shape under ``shapes`` and the launches per
 run under ``launches_by_run``), and ``{"ok": true, "device": {...}}``.
@@ -404,20 +424,14 @@ def all_kernels_cfg():
 def boot_case():
     """The boot run as ``(make, run)``: ``make()`` gives a fresh N=16,384 lean
     state with int16 timers, ``run(state)`` boots it to convergence."""
-    import torch
-
-    from kaboodle_tpu_torch.sim import init_state, run_until_converged
+    from kaboodle_tpu_torch.sim import run_until_converged
 
     cfg = all_kernels_cfg()
-
-    def make():
-        return init_state(16384, seed=0, track_latency=False, instant_identity=True,
-                          timer_dtype=torch.int16)
 
     def run(st):
         return run_until_converged(st, cfg, max_ticks=64)
 
-    return make, run
+    return lambda: lean_state(16384), run
 
 
 def churn_case():
@@ -852,6 +866,288 @@ def phase_checkpoint(churn_final) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- blocked tick
+
+# The row-blocked tick's runs: BASELINE configs 4 and 5 at their full width.
+CHUNK_N = 65536
+# Chosen with scripts/chunked_block_sweep.py: on an H100 80GB HBM3 at 700 W
+# the boot takes the same time at 1,024 to 4,096, and the first 3 config-5
+# ticks take 8 % less time than at 2,048 and 22 % less than at 1,024, for
+# ~1.6 GB more peak than at 2,048.
+CHUNK_BLOCK = 4096
+# The blocked tick against the dense one: the boot's width, 8 row blocks.
+PARITY_N = 16384
+PARITY_BLOCK = 2048
+# Config 5's depth cut: the first T5 of its 96 ticks (a multiple of 3, so
+# the drop, partition and heal thirds keep their shape).
+T5 = 24
+
+
+def lean_state(n: int, device="cuda"):
+    """A fresh lean state (no latency, no identity views) with int16 timers."""
+    import torch
+
+    from kaboodle_tpu_torch.sim import init_state
+
+    return init_state(n, seed=0, track_latency=False, instant_identity=True,
+                      timer_dtype=torch.int16, device=device)
+
+
+def float_metrics_rel_diff(a, b) -> float:
+    """The largest relative difference of the two float metrics."""
+    pairs = ((float(getattr(a, f)), float(getattr(b, f)))
+             for f in ("agree_fraction", "mean_membership"))
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in pairs)
+
+
+def phase_chunked_parity() -> dict:
+    """The blocked tick against the dense tick on the card at N = 16,384,
+    then against itself on the CPU at N = 512."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.sim import Scenario, idle_inputs, make_chunked_tick_fn, make_tick_fn
+    from kaboodle_tpu_torch.spec import WAITING_FOR_INDIRECT_PING
+
+    n = PARITY_N
+    cfg = SwimConfig(deterministic=True, use_pallas_fp=True, use_pallas_oldest_k=True,
+                     use_pallas_suspicion=True)
+    dense_boot, dense = make_tick_fn(cfg, faulty=False), make_tick_fn(cfg)
+    blk_boot = make_chunked_tick_fn(cfg, faulty=False, block=PARITY_BLOCK, boot_union=True)
+    blk = make_chunked_tick_fn(cfg, block=PARITY_BLOCK, drop=False)
+    # After the boot: kills, a two-way partition window and manual pings.
+    sc = (Scenario(n, 8).kill_at(0, [3, n // 4, n // 2 + 1, n - 5])
+          .partition_at(2, np.arange(n) % 2, until=5).manual_ping_at(1, 0, 77)
+          .manual_ping_at(3, 9, n // 4).manual_ping_at(5, 3 * n // 4, 3 * n // 4 + 1))
+    inputs = sc.build()
+    a, b = lean_state(n), lean_state(n)
+    steps = [(dense_boot, blk_boot, idle_inputs(n))] + [(dense, blk, inputs.at(t))
+                                                      for t in range(sc.ticks)]
+    rel, escalated, t0 = 0.0, 0, time.perf_counter()
+    for t, (f_dense, f_blk, inp) in enumerate(steps):
+        a, ma = f_dense(a, inp)
+        b, mb = f_blk(b, inp)
+        bad = state_diff(a, b) + [f for f in ("messages_delivered", "converged", "fingerprint_min",
+                                              "fingerprint_max")
+                                  if not torch.equal(getattr(ma, f), getattr(mb, f))]
+        if bad:
+            raise AssertionError(f"blocked != dense at N={n}, tick {t}: {bad}")
+        for f in ("state", "timer"):
+            if not getattr(b, f).is_contiguous():
+                raise AssertionError(f"blocked tick left {f} non-contiguous")
+        rel = max(rel, float_metrics_rel_diff(mb, ma))
+        escalated += bool((b.state == WAITING_FOR_INDIRECT_PING).any())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rel > 1e-6:
+        raise AssertionError(f"blocked float metrics off the dense ones by {rel}")
+    if not escalated:
+        raise AssertionError("the parity schedule never escalated")
+    del a, b
+    out = {"phase": "chunked_parity", "n": n, "block": PARITY_BLOCK, "ticks_equal": len(steps),
+           "ticks_with_escalations": escalated, "float_metrics_max_rel_diff": rel,
+           "float_metrics_tolerance": "rel 1e-6", "wall_s_both_engines": wall,
+           "card_vs_cpu": chunked_card_vs_cpu()}
+    emit(out)
+    return out
+
+
+def chunked_card_vs_cpu() -> dict:
+    """The blocked tick on the card against the CPU at N = 512 (block 128)
+    under config 5's drop and partition plus kills and a revive, in both
+    modes, plain and telemetry builds: every leaf, metric and counter equal
+    per tick, ``latency`` with NaN positions equal and rtol 1e-5."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.sim import baseline_scenario, init_state, make_chunked_tick_fn
+    from kaboodle_tpu_torch.sim.state import metrics_to_numpy, state_to_numpy
+    from kaboodle_tpu_torch.telemetry import FIELDS
+
+    out = {"n": 512, "block": 128}
+    for det in (True, False):
+        for telemetry in (False, True):
+            sc = baseline_scenario(5, n=512, ticks=12, seed=4).kill_at(2, [5, 6]).revive_at(9, [5])
+            tick = make_chunked_tick_fn(SwimConfig(deterministic=det), block=128,
+                                        telemetry=telemetry)
+            sides = {d: (init_state(512, seed=1, device=d), sc.build(d)) for d in ("cuda", "cpu")}
+            totals = dict.fromkeys(FIELDS, 0)
+            for t in range(sc.ticks):
+                res = {}
+                for d, (st, inp) in sides.items():
+                    st, o = tick(st, inp.at(t))
+                    sides[d] = (st, inp)
+                    m = o.metrics if telemetry else o
+                    leaves = {**state_to_numpy(st), **metrics_to_numpy(m)}
+                    if telemetry:
+                        leaves["fp"] = o.fp.cpu().numpy()
+                        leaves.update({f"c_{f}": getattr(o.counters, f).cpu().numpy()
+                                       for f in FIELDS})
+                    res[d] = leaves
+                for k, w in res["cpu"].items():
+                    g = res["cuda"][k]
+                    if k == "latency":
+                        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+                        np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=f"tick {t} latency")
+                    elif w is not None and not np.array_equal(g, w):
+                        raise AssertionError(f"blocked card != CPU, tick {t}: {k}")
+                if telemetry:
+                    for f in FIELDS:
+                        totals[f] += int(res["cpu"][f"c_{f}"])
+            key = ("deterministic" if det else "random") + ("_telemetry" if telemetry else "")
+            out[key] = {"equal_ticks": sc.ticks,
+                        "final_converged": bool(res["cpu"]["converged"])}
+            if telemetry:
+                out[key]["counter_totals"] = totals
+    torch.cuda.synchronize()
+    return out
+
+
+def release_device_memory() -> None:
+    """Free what earlier phases left: objects in reference cycles (a facade
+    and its event closures) wait for the collector, and the allocator's
+    cache for ``empty_cache``."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def chunked_boot_case():
+    """The config-4 run as ``(make, run)``: ``make()`` gives a fresh
+    N = 65,536 lean state, ``run(state)`` boots it through the blocked tick
+    (tick 0 with the closed-form union, then ``converge_loop``) and returns
+    ``(final, tick0_metrics, ticks_after_tick0, converged)``."""
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.sim import idle_inputs, make_chunked_tick_fn
+    from kaboodle_tpu_torch.sim.runner import converge_loop
+
+    cfg = SwimConfig()
+    boot = make_chunked_tick_fn(cfg, faulty=False, block=CHUNK_BLOCK, boot_union=True)
+    tick = make_chunked_tick_fn(cfg, faulty=False, block=CHUNK_BLOCK)
+
+    def run(st):
+        st, m0 = boot(st, idle_inputs(CHUNK_N))
+        final, ticks, conv = converge_loop(st, tick, max_ticks=16)
+        return final, m0, ticks, conv
+
+    return lambda: lean_state(CHUNK_N), run
+
+
+def chunked_faulty_case(ticks: int = T5):
+    """The config-5 run as ``(scenario, make, run)``: ``run(state, each)``
+    ticks the faulty blocked build (random drop on) over the scenario's
+    inputs, calling ``each(t, metrics)`` after every tick, and returns the
+    final state and the last tick's metrics."""
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.sim import baseline_scenario, make_chunked_tick_fn
+
+    sc = baseline_scenario(5, n=CHUNK_N, ticks=ticks)
+    inputs = sc.build()
+    tick = make_chunked_tick_fn(SwimConfig(), faulty=True, block=CHUNK_BLOCK, drop=True)
+
+    def run(st, each=None):
+        for t in range(sc.ticks):
+            st, m = tick(st, inputs.at(t))
+            if each is not None:
+                each(t, m)
+        return st, m
+
+    return sc, lambda: lean_state(CHUNK_N), run
+
+
+def phase_chunked_boot() -> dict:
+    """BASELINE config 4 at full width: a broadcast boot of N = 65,536 through
+    the blocked tick (the closed-form union on tick 0), then ``converge_loop``."""
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    make, run = chunked_boot_case()
+    release_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    box = [make()]
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    # Handed over, not kept here: the run is then free to drop it.
+    final, m0, ticks, conv = run(box.pop())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    known = final.state[:: CHUNK_N // 64].gt(0).sum(dim=-1)
+    out = {"phase": "chunked_boot", "n": CHUNK_N, "block": CHUNK_BLOCK, "config": 4,
+           "allocated_before": before, "peak_after_init_state": init_peak,
+           "tick0_messages_delivered": int(m0.messages_delivered),
+           "ticks_after_tick0": ticks, "converged": conv, "wall_s": wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "sampled_rows_known_min": int(known.min()), "launches": launches}
+    emit(out)
+    if not conv:
+        raise AssertionError(f"the N={CHUNK_N} blocked boot did not converge")
+    if int(known.min()) != CHUNK_N:
+        raise AssertionError("a converged row does not know every peer")
+    del final
+    return out
+
+
+def phase_chunked_faulty() -> dict:
+    """BASELINE config 5 at full width, depth cut to T5 ticks: 10 % drop over
+    the first two thirds, a two-way partition over the middle third."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.spec import KNOWN
+
+    sc, make, run = chunked_faulty_case()
+    release_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    walls, msgs = [], []
+    t0 = time.perf_counter()
+    last = [t0]
+
+    def each(t, m):
+        msgs.append(int(m.messages_delivered))  # a device fetch: the tick has finished
+        now = time.perf_counter()
+        walls.append(now - last[0])
+        last[0] = now
+
+    st, m = run(make(), each)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    alive_want = sc.alive_trajectory()[-1]
+    self_known = bool((st.state.diagonal()[st.alive] == KNOWN).all())
+    out = {"phase": "chunked_faulty", "n": CHUNK_N, "block": CHUNK_BLOCK, "config": 5,
+           "ticks": sc.ticks, "ticks_full_config": 96, "wall_s": wall, "wall_s_per_tick": walls,
+           "messages_delivered": msgs, "agree_fraction": float(m.agree_fraction),
+           "mean_membership": float(m.mean_membership),
+           "alive": int(st.alive.sum()), "alive_expected": int(alive_want.sum()),
+           "self_known": self_known, "allocated_before": before,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches}
+    emit(out)
+    if not all(x > 0 for x in msgs):
+        raise AssertionError("a config-5 tick delivered no message")
+    if not np.array_equal(st.alive.cpu().numpy(), alive_want):
+        raise AssertionError("the alive mask differs from the scenario's")
+    if not self_known:
+        raise AssertionError("an alive peer does not know itself")
+    if not (st.state.is_contiguous() and st.timer.is_contiguous()):
+        raise AssertionError("a state plane is not contiguous")
+    del st
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -883,10 +1179,16 @@ def main() -> int:
     facade = phase_facade()
     ckpt = phase_checkpoint(final)
     del final
+    phase_chunked_parity()
+    cboot = phase_chunked_boot()
+    cfaulty = phase_chunked_faulty()
+    # The blocked tick runs no kernel (as in the JAX package): its runs are
+    # counted, and launch 0, but no launch is required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
-            "checkpoint_resume": ckpt["launches_resumed"]}
+            "checkpoint_resume": ckpt["launches_resumed"],
+            "chunked_boot": cboot["launches"], "chunked_faulty": cfaulty["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from kaboodle_tpu_torch.ops.threefry import row_chunks
+
 MASK32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 
@@ -73,10 +75,16 @@ def membership_fingerprint(member: torch.Tensor, identities: torch.Tensor) -> to
     ``identities`` is the global ``[N]`` identity word per peer or the
     ``[N, N]`` per-row identity views. Returns int32 bits ``[N]``.
     """
-    pid = torch.arange(member.shape[-1], dtype=torch.int64, device=member.device)
-    h = peer_record_hash(pid if identities.dim() == 1 else pid[None, :], identities)
+    n_rows, n = member.shape
+    pid = torch.arange(n, dtype=torch.int64, device=member.device)
     zero = torch.zeros((), dtype=torch.int32, device=member.device)
-    return wrap_sum(torch.where(member, h if identities.dim() == 2 else h[None, :], zero))
+    h_row = peer_record_hash(pid, identities)[None, :] if identities.dim() == 1 else None
+    # In row chunks: the hashes and their int64 sums never take [N, N].
+    out = torch.empty((n_rows,), dtype=torch.int32, device=member.device)
+    for r0, r1 in row_chunks(n_rows, n):
+        h = h_row if h_row is not None else peer_record_hash(pid[None, :], identities[r0:r1])
+        out[r0:r1] = wrap_sum(torch.where(member[r0:r1], h, zero))
+    return out
 
 
 def fingerprint_agreement(alive: torch.Tensor, fp: torch.Tensor):

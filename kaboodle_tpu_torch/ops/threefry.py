@@ -26,8 +26,8 @@ import torch
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-# Cells per chunk of a shaped draw: 2^22 cells keep each int64 temporary
-# at 32 MiB.
+# Cells per row chunk of a shaped draw (and of init_state's plane and the
+# membership fingerprint): 2^22 cells keep each int64 temporary at 32 MiB.
 CHUNK_CELLS = 1 << 22
 
 Key = tuple[int, int]

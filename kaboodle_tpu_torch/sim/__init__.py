@@ -14,6 +14,7 @@ _LAZY = {
     "init_state": "kaboodle_tpu_torch.sim.state",
     "idle_inputs": "kaboodle_tpu_torch.sim.state",
     "make_tick_fn": "kaboodle_tpu_torch.sim.kernel",
+    "make_chunked_tick_fn": "kaboodle_tpu_torch.sim.chunked",
     "simulate": "kaboodle_tpu_torch.sim.runner",
     "run_until_converged": "kaboodle_tpu_torch.sim.runner",
     "simulate_with_telemetry": "kaboodle_tpu_torch.sim.runner",

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from kaboodle_tpu_torch.ops.hashing import u32_to_i32
+from kaboodle_tpu_torch.ops.threefry import row_chunks
 from kaboodle_tpu_torch.spec import KNOWN
 
 _U32_FIELDS = ("identity", "kpr_fp", "key", "id_view")
@@ -119,24 +120,25 @@ def init_state(
     ``device`` names another."""
     dev = resolve_device(device)
     idx = torch.arange(n, dtype=torch.int32, device=dev)
-    eye = idx[:, None] == idx[None, :]
     if identities is None:
         ident = (idx + 1).to(torch.int32)
     else:
         ident = torch.as_tensor(np.asarray(identities, dtype=np.uint32).view(np.int32),
                                 device=dev)
-    member = eye
-    if ring_contacts:
-        if ring_contacts >= n:
-            raise ValueError("ring_contacts must be < n")
-        delta = (idx[None, :] - idx[:, None]) % n
-        member = member | (delta <= ring_contacts)
+    if ring_contacts and ring_contacts >= n:
+        raise ValueError("ring_contacts must be < n")
+    # Peer i knows (i + d) mod n for d = 0..ring_contacts, written in row
+    # chunks: no [N, N] temporary beside the int8 plane.
+    state = torch.empty((n, n), dtype=torch.int8, device=dev)
+    for r0, r1 in row_chunks(n, n):
+        delta = (idx[None, :] - idx[r0:r1, None]) % n
+        state[r0:r1] = (delta <= max(ring_contacts, 0)).to(torch.int8) * KNOWN
     if alive is None:
         alive_t = torch.ones((n,), dtype=torch.bool, device=dev)
     else:
         alive_t = torch.as_tensor(np.asarray(alive, dtype=bool), device=dev)
     return MeshState(
-        state=torch.where(member, KNOWN, 0).to(torch.int8),
+        state=state,
         timer=torch.zeros((n, n), dtype=timer_dtype, device=dev),
         alive=alive_t,
         identity=ident,

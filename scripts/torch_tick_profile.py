@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's tick spends its time on the card.
 
-    python3 scripts/torch_tick_profile.py [--out PATH]
+    python3 scripts/torch_tick_profile.py [--out PATH] [--cells NAME,...]
 
-Runs the two main-path cells of ``chip_smoke.py`` (its ``boot_case`` and
-``churn_case``, imported from there) -- the N=16,384 lean
-broadcast boot (``run_until_converged``) and the N=8,192 BASELINE config-3
-churn (64 ticks, ``simulate``), all three kernel flags on, random mode --
-twice each: once plain for the wall time (ending in
+Runs the main-path cells of ``chip_smoke.py`` (its ``boot_case``,
+``churn_case``, ``chunked_boot_case`` and ``chunked_faulty_case``, imported
+from there) -- the N=16,384 lean broadcast boot (``run_until_converged``),
+the N=8,192 BASELINE config-3 churn (64 ticks, ``simulate``), both with
+all three kernel flags on, and the blocked tick at N=65,536: the config-4
+boot and the first 3 ticks of config 5 (the Join avalanche under drop, a
+drop tick in the partition, the first healed tick), random mode -- twice
+each: once plain for the wall time (ending in
 ``torch.cuda.synchronize()``), once under ``torch.profiler`` for the device
-time by kernel. Prints one JSON line per cell: wall seconds, device kernel
-time, the device's busy share (device time over the unprofiled wall) and
-the share of the four hand kernels; ``--out`` writes the full report, with
-the top device kernels by time, as JSON. Needs a CUDA card; builds the
-kernels itself.
+time by kernel. The dense cells are warmed up by a third run first; the
+blocked cells, tens of seconds each, are not. Prints one JSON line per
+cell: wall seconds, device kernel time, the device's busy share (device
+time over the unprofiled wall) and the share of the four hand kernels;
+``--out`` writes the full report, with the top device kernels by time,
+as JSON. Needs a CUDA card; builds the kernels itself.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 HAND_KERNELS = ("fused_fp_kernel", "fused_suspicion_kernel", "fused_oldest_k_kernel")
+CELLS = ("boot_n16384_lean", "churn_config3_n8192", "chunked_boot_config4_n65536",
+         "chunked_config5_n65536_3ticks")
 
 
 def _device_us(evt) -> float:
@@ -35,11 +41,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_cell(name: str, make, run) -> dict:
+def profile_cell(name: str, make, run, warm: bool = True) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run(make())  # warm-up: library loads, cuBLAS handles, allocator
+    if warm:
+        run(make())  # warm-up: library loads, cuBLAS handles, allocator
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     state = make()
     torch.cuda.synchronize()
@@ -48,6 +56,7 @@ def profile_cell(name: str, make, run) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
+    del state
     state = make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -73,6 +82,8 @@ def profile_cell(name: str, make, run) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report (JSON) here")
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help=f"comma-separated cells to run (default: all of {', '.join(CELLS)})")
     args = ap.parse_args()
     import torch
 
@@ -85,14 +96,17 @@ def main() -> int:
 
     _cuda.build()
     card = chip_smoke.card_line()
-    _, churn_make, churn_run = chip_smoke.churn_case()
-    cells = [
-        profile_cell("boot_n16384_lean", *chip_smoke.boot_case()),
-        profile_cell("churn_config3_n8192", churn_make, churn_run),
-    ]
+    cases = {
+        "boot_n16384_lean": lambda: chip_smoke.boot_case(),
+        "churn_config3_n8192": lambda: chip_smoke.churn_case()[1:],
+        "chunked_boot_config4_n65536": lambda: chip_smoke.chunked_boot_case() + (False,),
+        "chunked_config5_n65536_3ticks": lambda: chip_smoke.chunked_faulty_case(3)[1:] + (False,),
+    }
+    cells = []
+    for name in args.cells.split(","):
+        cells.append(profile_cell(name, *cases[name]()))
+        print(json.dumps({k: v for k, v in cells[-1].items() if k != "top_kernels"}), flush=True)
     out = {"card": card, "torch": torch.__version__, "cells": cells}
-    for c in cells:
-        print(json.dumps({k: v for k, v in c.items() if k != "top_kernels"}), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

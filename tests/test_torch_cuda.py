@@ -17,7 +17,12 @@ from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
 from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k, fused_oldest_k_plain
 from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion, fused_suspicion_plain
 from kaboodle_tpu_torch.phasegraph.exec import _bool_matmul
-from kaboodle_tpu_torch.sim import baseline_scenario, init_state, make_tick_fn
+from kaboodle_tpu_torch.sim import (
+    baseline_scenario,
+    init_state,
+    make_chunked_tick_fn,
+    make_tick_fn,
+)
 from kaboodle_tpu_torch.sim.state import metrics_to_numpy, state_to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +112,29 @@ def test_tick_on_card_equals_cpu(card, det):
     tick = make_tick_fn(cfg)
     sides = {d: (init_state(256, seed=1, alive=sc.initial_alive(), device=d), sc.build(d))
              for d in ("cuda", "cpu")}
+    for t in range(sc.ticks):
+        out = {}
+        for d, (st, inp) in sides.items():
+            st, m = tick(st, inp.at(t))
+            sides[d] = (st, inp)
+            out[d] = {**state_to_numpy(st), **metrics_to_numpy(m)}
+        for k, w in out["cpu"].items():
+            g = out["cuda"][k]
+            if k == "latency":
+                np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+                np.testing.assert_allclose(g, w, rtol=1e-5)
+            elif w is not None:
+                np.testing.assert_array_equal(g, w, err_msg=f"tick {t} {k}")
+
+
+@pytest.mark.parametrize("det", [False, True])
+def test_chunked_tick_on_card_equals_cpu(card, det):
+    """The row-blocked tick (block 128 of N=512) on the card against the CPU
+    under BASELINE config 5's drop and partition plus kills and a revive:
+    the per-block drop draws, escalation proxies and join replies included."""
+    sc = baseline_scenario(5, n=512, ticks=12, seed=4).kill_at(2, [5, 6]).revive_at(9, [5])
+    tick = make_chunked_tick_fn(SwimConfig(deterministic=det), block=128)
+    sides = {d: (init_state(512, seed=1, device=d), sc.build(d)) for d in ("cuda", "cpu")}
     for t in range(sc.ticks):
         out = {}
         for d, (st, inp) in sides.items():

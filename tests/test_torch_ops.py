@@ -76,8 +76,12 @@ def test_mix32_and_record_hash_match(seed):
     )
 
 
+@pytest.mark.parametrize("chunk_cells", [None, 5 * 96])
 @pytest.mark.parametrize("views", [False, True])
-def test_membership_fingerprint_matches(views):
+def test_membership_fingerprint_matches(views, chunk_cells, monkeypatch):
+    """Whole, and in row chunks of 5 rows (the last chunk short)."""
+    if chunk_cells:
+        monkeypatch.setattr(threefry, "CHUNK_CELLS", chunk_cells)
     rng_ = np.random.default_rng(3)
     n = 96
     member = rng_.random((n, n)) < 0.6
@@ -295,6 +299,17 @@ def test_init_state_matches_and_round_trips(opts):
     _assert_leaves_equal(_jax_leaves(js), tstate.state_to_numpy(ts))
     back = tstate.state_to_numpy(tstate.state_from_numpy(_jax_leaves(js), device=CPU))
     _assert_leaves_equal(_jax_leaves(js), back)
+
+
+@pytest.mark.parametrize("ring_contacts", [0, 3])
+def test_init_state_plane_matches_in_row_chunks(ring_contacts, monkeypatch):
+    """The int8 plane, written in row chunks (here of 2 rows, so every chunk
+    boundary and the ring's wrap-around are crossed), equals JAX's."""
+    monkeypatch.setattr(threefry, "CHUNK_CELLS", 2 * 20)
+    js = jstate.init_state(20, seed=1, ring_contacts=ring_contacts)
+    ts = tstate.init_state(20, seed=1, ring_contacts=ring_contacts, device=CPU)
+    assert ts.state.dtype == torch.int8 and ts.state.is_contiguous()
+    _assert_leaves_equal(_jax_leaves(js), tstate.state_to_numpy(ts))
 
 
 def test_idle_inputs_and_scenarios_match():
