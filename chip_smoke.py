@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs twelve phases, each printing one JSON line; any failure raises and the
+runs fifteen phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -68,12 +68,30 @@ script exits non-zero without the result line:
                scenario's, every alive peer knows itself, the planes stay
                contiguous. Agreement is not asserted: it cannot hold while
                drop is on.
+13. fleet_boot -- the sweep's seeds-only ensemble at BASELINE config 2's mesh:
+               E = 256 members of N = 1,024 (268 M cells), broadcast boot,
+               fault-free, lean state with int32 timers, random mode, seeds
+               0-255, ``run_fleet_until_converged(max_ticks=64)``, then the
+               quantiles and the survival curve on the card (``fleet/bench.py
+               ::sweep``): wall, ticks run, peak, p50/p90/p99.
+14. fleet_sweep -- the documented sweep ``--sweep drop_rate=0:0.3:16`` at E =
+               256 (16 members a rate), N = 1,024, faulty, 64 ticks at most:
+               the sweep's dict, wall and peak. Members that never converge
+               under high drop are a result, not a failure.
+15. fleet_parity -- a gate: members 0, 131 and 255 of fleet_boot and one
+               member per drop rate of fleet_sweep equal standalone runs of
+               the single-mesh tick on the card (same seed, rate and
+               ``max_ticks``), state bit for bit and ``conv_tick ==
+               ticks_run``; then a small fleet (E = 8, N = 128, 12 ticks,
+               random mode, faulty, per-member drop rates and churn
+               schedules) equals itself on the CPU, telemetry off and on.
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the facade at capacity 8,192, the checkpoint's
-resumed ticks and the two blocked runs) and read just after: each kernel
-of the dense path must have launched; the blocked tick runs no kernel (as
-in the JAX package), so its runs count 0 and none is required of them. The last lines are the card's name and power limit, the
+resumed ticks, the two blocked runs and the two fleet runs) and read just
+after: each kernel of the dense path must have launched; the blocked tick
+and the fleet run no kernel (as in the JAX package, whose fleet refuses
+the Pallas flags), so their runs count 0 and none is required of them. The last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` summary (per kernel the numbers of the shape it is
 launched at most, every timed shape under ``shapes`` and the launches per
 run under ``launches_by_run``), and ``{"ok": true, "device": {...}}``.
@@ -1148,6 +1166,198 @@ def phase_chunked_faulty() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- fleet
+
+# BASELINE config 2's mesh, E members: the sweep's defaults (``--ensemble``).
+FLEET_N = 1024
+FLEET_E = 256
+FLEET_MAX_TICKS = 64
+FLEET_BOOT_MEMBERS = (0, 131, 255)
+FLEET_SWEEP = "drop_rate=0:0.3:16"
+
+
+def fleet_args(*argv):
+    """The sweep's arguments (``fleet/bench.py::build_parser``) at the fleet
+    runs' shape, on the card."""
+    from kaboodle_tpu_torch.fleet.bench import build_parser
+
+    return build_parser().parse_args(
+        ["--ensemble", str(FLEET_E), "--n", str(FLEET_N), "--max-ticks", str(FLEET_MAX_TICKS),
+         "--device", "cuda", *argv])
+
+
+def run_fleet_phase(name: str, args) -> tuple[dict, object]:
+    """One sweep through ``fleet/bench.py::sweep`` with the launch counts at 0
+    before it: its line, wall, ticks run and peak, and the fleet run's
+    ``(fleet, conv_tick, done)`` for the parity phase."""
+    import torch
+
+    from kaboodle_tpu_torch.fleet.bench import sweep
+    from kaboodle_tpu_torch.ops import _cuda
+
+    release_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    line, fleet, conv_tick, done = sweep(args)
+    torch.cuda.synchronize()
+    phase_wall = time.perf_counter() - t0
+    launches = counts()
+    ticks_run = FLEET_MAX_TICKS if not bool(done.all()) else int(conv_tick.max())
+    out = {"phase": name, "e": FLEET_E, "n": FLEET_N, "cells": FLEET_E * FLEET_N * FLEET_N,
+           "wall_s": line["wall_s"], "wall_s_with_init": phase_wall, "ticks_run": ticks_run,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "conv_tick_histogram": torch.bincount(conv_tick[done].long()).tolist(),
+           "sweep_line": line, "launches": launches}
+    emit(out)
+    if line["backend"] != "cuda" or fleet.mesh.state.device.type != "cuda":
+        raise AssertionError(f"{name} did not run on the card")
+    if not bool(torch.isfinite(torch.tensor(list(line["quantiles"].values()))).any()):
+        raise AssertionError(f"{name}: no member converged")
+    return out, (fleet, conv_tick, done)
+
+
+def phase_fleet_boot():
+    """The seeds-only ensemble: E = 256 broadcast boots of N = 1,024."""
+    out, res = run_fleet_phase("fleet_boot", fleet_args("--seeds-only"))
+    if out["sweep_line"]["converged_fraction"] != 1.0:
+        raise AssertionError("a fleet_boot member did not converge in 64 ticks")
+    return out, res
+
+
+def phase_fleet_sweep():
+    """The documented drop-rate sweep: 16 rates over E = 256 members."""
+    out, res = run_fleet_phase("fleet_sweep", fleet_args("--sweep", FLEET_SWEEP))
+    if len(out["sweep_line"]["per_knob"]) != 16:
+        raise AssertionError("fleet_sweep did not report 16 drop rates")
+    return out, res
+
+
+def fleet_member_vs_standalone(res, members, rates=None) -> list[dict]:
+    """Members of a fleet run against standalone single-mesh runs on the card
+    from the same seed (and drop rate, in the faulty build): the frozen
+    state bit-equal and ``conv_tick == ticks_run``, ``done == converged``.
+    Each standalone run's wall (ending in ``torch.cuda.synchronize()``) is
+    the one-mesh yardstick for the fleet's time per member-tick."""
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.fleet import member_state
+    from kaboodle_tpu_torch.sim import init_state, make_tick_fn
+    from kaboodle_tpu_torch.sim.runner import converge_loop
+
+    fleet, conv_tick, done = res
+    cfg = SwimConfig()  # the sweep's broadcast boot, random mode
+    tick = make_tick_fn(cfg, faulty=rates is not None)
+    rows = []
+    for e in members:
+        st = init_state(FLEET_N, seed=e, track_latency=False, instant_identity=True)
+        rate = None if rates is None else float(rates[e])
+        if rate is None:
+            step = tick
+        else:
+            r = torch.tensor(rate, dtype=torch.float32, device=st.device)
+
+            def step(s, inp, r=r):
+                return tick(s, dataclasses.replace(inp, drop_rate=r))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ticks_run, conv = converge_loop(st, step, FLEET_MAX_TICKS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = state_diff(member_state(fleet, e), st)
+        row = {"member": e, "drop_rate": rate, "ticks_run": ticks_run, "converged": conv,
+               "conv_tick": int(conv_tick[e]), "done": bool(done[e]), "state_diff": bad,
+               "standalone_wall_s": wall}
+        rows.append(row)
+        if bad or (ticks_run, conv) != (row["conv_tick"], row["done"]):
+            raise AssertionError(f"fleet member != standalone run: {row}")
+    return rows
+
+
+def fleet_card_vs_cpu() -> dict:
+    """A small fleet on the card against the CPU: E = 8, N = 128, 12 ticks,
+    random mode, faulty, per-member drop rates and churn schedules stacked
+    by ``stack_member_inputs``; telemetry off and on. Every leaf, metric,
+    counter and digest equal per run (``latency``: NaN positions equal,
+    rtol 1e-5, as in phase ``parity``)."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.fleet import (
+        init_fleet,
+        scan_axis_first,
+        simulate_fleet,
+        stack_member_inputs,
+    )
+    from kaboodle_tpu_torch.sim import Scenario
+    from kaboodle_tpu_torch.sim.state import fleet_to_numpy, metrics_to_numpy
+    from kaboodle_tpu_torch.telemetry import FIELDS
+
+    n, e, ticks = 128, 8, 12
+    rates = [0.02 * m for m in range(e)]
+    scenarios = [Scenario(n, ticks).kill_at(2, [m + 1, m + 40, m + 90]).revive_at(7, [m + 1])
+                 .partition_at(4, (np.arange(n) + m) % 2, until=6).manual_ping_at(3, m, 100 - m)
+                 for m in range(e)]
+    out = {"e": e, "n": n, "ticks": ticks}
+    for telemetry in (False, True):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            inputs = scan_axis_first(stack_member_inputs([sc.build(dev) for sc in scenarios]))
+            inputs.drop_rate = torch.tensor(rates, device=dev).expand(ticks, e)
+            fleet = init_fleet(n, e, drop_rates=rates, device=dev)
+            fleet, m = simulate_fleet(fleet, inputs, SwimConfig(), faulty=True,
+                                      telemetry=telemetry)
+            leaves = {f"state.{k}": v for k, v in fleet_to_numpy(fleet)["mesh"].items()}
+            metrics = m.metrics if telemetry else m
+            leaves.update({f"metrics.{k}": v for k, v in metrics_to_numpy(metrics).items()})
+            if telemetry:
+                leaves["fp"] = m.fp.cpu().numpy()
+                leaves.update({f"counter.{f}": getattr(m.counters, f).cpu().numpy()
+                               for f in FIELDS})
+            res[dev] = leaves
+        bad = []
+        for k, w in res["cpu"].items():
+            g = res["cuda"][k]
+            if w is None or g is None:
+                if (w is None) != (g is None):
+                    bad.append(k)
+            elif k == "state.latency":  # NaN positions equal, rtol 1e-5 (as phase parity)
+                if not (np.array_equal(np.isnan(g), np.isnan(w))
+                        and np.allclose(g, w, rtol=1e-5, atol=0.0, equal_nan=True)):
+                    bad.append(k)
+            elif not np.array_equal(g, w):
+                bad.append(k)
+        key = "telemetry" if telemetry else "plain"
+        out[key] = {"leaves_equal": len(res["cpu"]) - len(bad), "differ": bad,
+                    "deaths_declared": int(res["cpu"]["counter.deaths_declared"].sum())
+                    if telemetry else None}
+        if bad:
+            raise AssertionError(f"fleet card != CPU ({key}): {bad}")
+    return out
+
+
+def phase_fleet_parity(boot_res, sweep_res, sweep_line) -> dict:
+    import numpy as np
+
+    t0 = time.perf_counter()
+    boot_rows = fleet_member_vs_standalone(boot_res, FLEET_BOOT_MEMBERS)
+    steps = len(sweep_line["per_knob"])
+    per = FLEET_E // steps
+    rates = np.repeat(np.linspace(0.0, 0.3, steps, dtype=np.float32), per)
+    sweep_rows = fleet_member_vs_standalone(sweep_res, [b * per + b % per for b in range(steps)],
+                                            rates)
+    card_cpu = fleet_card_vs_cpu()
+    standalone_ticks = sum(r["ticks_run"] for r in sweep_rows)
+    out = {"phase": "fleet_parity", "boot_members": boot_rows, "sweep_members": sweep_rows,
+           "sweep_standalone_s_per_tick": sum(r["standalone_wall_s"] for r in sweep_rows)
+           / max(standalone_ticks, 1),
+           "card_vs_cpu": card_cpu, "wall_s": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1161,7 +1371,7 @@ def main() -> int:
     from kaboodle_tpu_torch.ops import _cuda
 
     card = card_line()
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     _cuda.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1182,13 +1392,18 @@ def main() -> int:
     phase_chunked_parity()
     cboot = phase_chunked_boot()
     cfaulty = phase_chunked_faulty()
-    # The blocked tick runs no kernel (as in the JAX package): its runs are
-    # counted, and launch 0, but no launch is required of them.
+    fboot, boot_res = phase_fleet_boot()
+    fsweep, sweep_res = phase_fleet_sweep()
+    phase_fleet_parity(boot_res, sweep_res, fsweep["sweep_line"])
+    del boot_res, sweep_res
+    # The blocked tick and the fleet run no kernel (as in the JAX package):
+    # their runs are counted, and launch 0, but no launch is required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
             "checkpoint_resume": ckpt["launches_resumed"],
-            "chunked_boot": cboot["launches"], "chunked_faulty": cfaulty["launches"]}
+            "chunked_boot": cboot["launches"], "chunked_faulty": cfaulty["launches"],
+            "fleet_boot": fboot["launches"], "fleet_sweep": fsweep["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]
@@ -1213,6 +1428,7 @@ def main() -> int:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "shape": top["shape"], "cell": top["cell"], "shapes": shapes,
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - start})
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,12 @@ written here resumes in the JAX package. Every array round-trips exactly,
 the PRNG key included, so a resumed run is indistinguishable from an
 uninterrupted one.
 
+A fleet checkpoint (``save_fleet`` / ``load_fleet``) holds the stacked
+``MeshState`` fields under ``mesh.``-prefixed names, the per-member
+``drop_rate``, optionally the serve pool's per-lane ``generation``
+counters, the version and a ``__fleet__`` marker: the JAX package's fleet
+schema, in both directions too.
+
 Every failure to read an archive back -- missing, truncated, not a zip,
 a corrupt member, a wrong version or owner, missing fields -- raises
 :class:`~kaboodle_tpu_torch.errors.CheckpointError`.
@@ -25,8 +31,16 @@ import zipfile
 
 import numpy as np
 
+import torch
+
 from kaboodle_tpu_torch.errors import CheckpointError
-from kaboodle_tpu_torch.sim.state import MeshState, state_from_numpy, state_to_numpy
+from kaboodle_tpu_torch.sim.state import (
+    MeshState,
+    fleet_from_numpy,
+    fleet_to_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
 
 _FORMAT_VERSION = 1
 
@@ -124,3 +138,57 @@ def load(path, expect_owner: str | None = None, device=None) -> MeshState:
             raise CheckpointError(f"checkpoint missing fields: {sorted(missing)}")
         leaves = {name: z[name] for name in fields if name in z.files}
     return state_from_numpy(leaves, device=device)
+
+
+def save_fleet(path, fleet, generation=None, atomic: bool = False) -> None:
+    """Write a ``FleetState`` to ``path`` (.npz), fetching it to the host.
+
+    One entry per stacked ``MeshState`` field (``mesh.`` prefixed), the
+    per-member ``drop_rate`` and, when given, the per-lane ``generation``
+    counters (int32), so a restored serve pool keeps its (lane, generation)
+    names. Fields that are ``None`` are absent; ``atomic=True`` as in
+    :func:`save`."""
+    host = fleet_to_numpy(fleet)
+    arrays = {"mesh." + name: a for name, a in host["mesh"].items() if a is not None}
+    arrays["drop_rate"] = host["drop_rate"]
+    if generation is not None:
+        if isinstance(generation, torch.Tensor):
+            generation = generation.detach().cpu().numpy()
+        arrays["generation"] = np.asarray(generation, dtype=np.int32)
+    arrays["__version__"] = np.int32(_FORMAT_VERSION)
+    arrays["__fleet__"] = np.int32(1)
+    if atomic:
+        _savez_atomic(path, arrays)
+    else:
+        np.savez(path, **arrays)
+
+
+def load_fleet(path, device=None):
+    """Read a fleet checkpoint onto the card, or onto ``device`` when given.
+
+    Returns ``(fleet, generation)``; ``generation`` (int32 ``[E]``) is
+    ``None`` when the archive has no lane counters. Round-trips bit-exactly.
+    Every failure raises :class:`CheckpointError`, a single-mesh archive
+    included."""
+    with _open_npz(path) as z:
+        if "__version__" not in z.files:
+            raise CheckpointError(f"not a kaboodle checkpoint (no version entry): {path}")
+        version = int(z["__version__"])
+        if version != _FORMAT_VERSION:
+            raise CheckpointError(f"unsupported checkpoint version {version}")
+        if "__fleet__" not in z.files:
+            raise CheckpointError("not a fleet checkpoint (single-mesh? use checkpoint.load)")
+        fields = {f.name for f in dataclasses.fields(MeshState)}
+        present = {name[len("mesh."):] for name in z.files if name.startswith("mesh.")}
+        missing = fields - present - _optional_fields()
+        if missing:
+            raise CheckpointError(f"checkpoint missing fields: {sorted(missing)}")
+        if "drop_rate" not in z.files:
+            raise CheckpointError("fleet checkpoint missing drop_rate")
+        mesh = {name: z["mesh." + name] for name in fields & present}
+        drop_rate = z["drop_rate"]
+        generation = z["generation"] if "generation" in z.files else None
+    fleet = fleet_from_numpy({"mesh": mesh, "drop_rate": drop_rate}, device=device)
+    if generation is not None:
+        generation = torch.as_tensor(np.array(generation), device=fleet.mesh.device)
+    return fleet, generation

@@ -27,14 +27,18 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def fused_fp_count_plain(state: torch.Tensor, identity: torch.Tensor):
-    """The plain PyTorch version: ``(fp int32 bits [N], count int32 [N])``."""
+    """The plain PyTorch version: ``(fp int32 bits [N], count int32 [N])``.
+
+    Also over a leading ensemble axis: ``state`` ``[E, N, N]`` with
+    identity views ``[E, N, N]`` or record hashes ``[E, N]`` gives ``[E, N]``
+    pairs (the kernel takes one mesh)."""
     member = state > 0
     n = state.shape[-1]
-    if identity.dim() == 2:
+    if identity.shape == state.shape:
         pid = torch.arange(n, dtype=torch.int64, device=state.device)[None, :]
         h = peer_record_hash(pid, identity)
     else:
-        h = identity[None, :]
+        h = identity[..., None, :]
     zero = torch.zeros((), dtype=torch.int32, device=state.device)
     fp = wrap_sum(torch.where(member, h, zero))
     return fp, member.sum(dim=-1, dtype=torch.int32)

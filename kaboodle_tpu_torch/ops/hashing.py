@@ -70,33 +70,47 @@ def wrap_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def membership_fingerprint(member: torch.Tensor, identities: torch.Tensor) -> torch.Tensor:
-    """Commutative fingerprint of each row of the bool ``[N, N]`` membership.
+    """Commutative fingerprint of each row of the bool ``[..., N, N]`` membership.
 
-    ``identities`` is the global ``[N]`` identity word per peer or the
-    ``[N, N]`` per-row identity views. Returns int32 bits ``[N]``.
+    ``identities`` is the global ``[..., N]`` identity word per peer (one
+    vector per mesh) or the ``[..., N, N]`` per-row identity views. Returns
+    int32 bits ``[..., N]``.
     """
-    n_rows, n = member.shape
+    *batch, n_rows, n = member.shape
     pid = torch.arange(n, dtype=torch.int64, device=member.device)
     zero = torch.zeros((), dtype=torch.int32, device=member.device)
-    h_row = peer_record_hash(pid, identities)[None, :] if identities.dim() == 1 else None
-    # In row chunks: the hashes and their int64 sums never take [N, N].
-    out = torch.empty((n_rows,), dtype=torch.int32, device=member.device)
-    for r0, r1 in row_chunks(n_rows, n):
-        h = h_row if h_row is not None else peer_record_hash(pid[None, :], identities[r0:r1])
-        out[r0:r1] = wrap_sum(torch.where(member[r0:r1], h, zero))
-    return out
+    rows = member.reshape(-1, n)
+    views = identities.shape == member.shape
+    if views:
+        ids = identities.reshape(-1, n)
+    else:  # one hash vector per mesh, [meshes, N]
+        h_mesh = peer_record_hash(pid, identities).reshape(-1, n)
+    # In row chunks (of all meshes' rows): the hashes and their int64 sums
+    # never take [N, N].
+    out = torch.empty((rows.shape[0],), dtype=torch.int32, device=member.device)
+    for r0, r1 in row_chunks(rows.shape[0], n):
+        if views:
+            h = peer_record_hash(pid[None, :], ids[r0:r1])
+        elif h_mesh.shape[0] == 1:
+            h = h_mesh
+        else:
+            mesh = torch.arange(r0, r1, device=member.device) // n_rows
+            h = h_mesh[mesh]
+        out[r0:r1] = wrap_sum(torch.where(rows[r0:r1], h, zero))
+    return out.view(*batch, n_rows)
 
 
 def fingerprint_agreement(alive: torch.Tensor, fp: torch.Tensor):
-    """Global fingerprint agreement over the alive rows.
+    """Fingerprint agreement over the alive rows of each mesh (``[..., N]``).
 
     The minimum and maximum are taken over the UNSIGNED values, as the
-    reference does on uint32. Returns ``(converged bool [], fp_min int32
-    bits [], fp_max int32 bits [], n_alive int32 [])``.
+    reference does on uint32. Returns ``(converged bool, fp_min int32 bits,
+    fp_max int32 bits, n_alive int32)``, each of the leading shape (``[]``
+    for one mesh, ``[E]`` for an ensemble).
     """
     u = as_u32(fp)
-    fp_min = torch.where(alive, u, MASK32).amin()
-    fp_max = torch.where(alive, u, 0).amax()
-    n_alive = alive.sum(dtype=torch.int32)
+    fp_min = torch.where(alive, u, MASK32).amin(dim=-1)
+    fp_max = torch.where(alive, u, 0).amax(dim=-1)
+    n_alive = alive.sum(dim=-1, dtype=torch.int32)
     converged = (fp_min == fp_max) & (n_alive > 0)
     return converged, wrap32(fp_min), wrap32(fp_max), n_alive

@@ -10,6 +10,10 @@ same picks.
 ``torch.topk`` promises no order among equal values, so every top-k here
 ranks on a composite int64 key that is unique per cell: the value first,
 then the column index, in the order ``lax.top_k`` (stable) gives.
+
+Every function takes a leading ensemble axis too (``[E, N, N]`` masks,
+``[E, N]`` rows) with a key of ``[E]`` words: member e gets the draw its
+own key gives a single mesh, as the JAX package's ``vmap`` does.
 """
 
 from __future__ import annotations
@@ -42,11 +46,11 @@ def _stable_k_smallest_iter(scores: torch.Tensor, k: int, tmax: int):
     prev_i = torch.full(scores.shape[:-1], -1, dtype=torch.int32, device=scores.device)
     out_i, out_v = [], []
     for _ in range(k):
-        after_prev = (scores > prev_s[:, None]) | (
-            (scores == prev_s[:, None]) & (idxr > prev_i[:, None])
+        after_prev = (scores > prev_s[..., None]) | (
+            (scores == prev_s[..., None]) & (idxr > prev_i[..., None])
         )
         s_r = torch.where(after_prev, scores, tmax).amin(dim=-1)
-        i_r = torch.where(after_prev & (scores == s_r[:, None]), idxr, n).amin(dim=-1)
+        i_r = torch.where(after_prev & (scores == s_r[..., None]), idxr, n).amin(dim=-1)
         out_i.append(i_r)
         out_v.append(s_r != tmax)
         prev_s, prev_i = s_r, i_r
@@ -63,7 +67,7 @@ def choose_one_of_oldest_k(
     method: str = "iter",
 ) -> torch.Tensor:
     """Per row: uniform choice among the k eligible entries with the smallest
-    timer (ties toward the lower index). int32 ``[N]``, -1 where none.
+    timer (ties toward the lower index). int32 ``[..., N]``, -1 where none.
 
     The ineligibility sentinel is the timer dtype's max (int16 in lean mode)."""
     n = timer.shape[-1]
@@ -72,7 +76,7 @@ def choose_one_of_oldest_k(
     scores = torch.where(eligible, timer, tmax)
     if deterministic and method == "iter":
         idx, valid = _stable_k_smallest_iter(scores, 1, tmax)
-        return torch.where(valid[:, 0], idx[:, 0], -1).to(torch.int32)
+        return torch.where(valid[..., 0], idx[..., 0], -1).to(torch.int32)
     pick = _stable_k_smallest_iter if method == "iter" else _stable_k_smallest_topk
     idx, valid = pick(scores, k, tmax)
     return choose_among_candidates(idx, valid, key, deterministic)
@@ -84,10 +88,10 @@ def choose_among_candidates(
     key: threefry.Key,
     deterministic: bool = False,
 ) -> torch.Tensor:
-    """Uniform pick per row from ``(idx, valid)`` candidate lists ``[N, k]``."""
+    """Uniform pick per row from ``(idx, valid)`` candidate lists ``[..., N, k]``."""
     if deterministic:
         return pick_candidate(idx, valid, None)
-    return pick_candidate(idx, valid, threefry.uniform(key, (idx.shape[0],), idx.device))
+    return pick_candidate(idx, valid, threefry.uniform(key, (idx.shape[-2],), idx.device))
 
 
 def pick_candidate(idx: torch.Tensor, valid: torch.Tensor, u: torch.Tensor | None) -> torch.Tensor:
@@ -95,11 +99,11 @@ def pick_candidate(idx: torch.Tensor, valid: torch.Tensor, u: torch.Tensor | Non
     in float32, or the first candidate when ``u`` is None."""
     count = valid.sum(dim=-1, dtype=torch.int32)
     if u is None:
-        choice = torch.zeros(idx.shape[0], dtype=torch.int64, device=idx.device)
+        choice = torch.zeros(idx.shape[:-1], dtype=torch.int64, device=idx.device)
     else:
         choice = torch.floor(u * count.to(torch.float32)).to(torch.int64)
         choice = torch.minimum(choice, (count - 1).clamp(min=0).to(torch.int64))
-    chosen = idx.gather(-1, choice[:, None])[:, 0]
+    chosen = idx.gather(-1, choice[..., None])[..., 0]
     return torch.where(count > 0, chosen, -1).to(torch.int32)
 
 
@@ -111,26 +115,30 @@ def choose_k_members(
 ):
     """Per row: up to ``k`` distinct members of the mask, uniformly at random
     (Gumbel-top-k, the reference's ``choose_multiple``). Deterministic mode
-    takes the lowest indices. Returns ``(idx int32 [N, k], valid bool [N, k])``.
+    takes the lowest indices. Returns ``(idx int32 [..., N, k], valid bool
+    [..., N, k])``; a leading ensemble axis of ``eligible`` goes with ``[E]``
+    key words.
 
-    Ranks on ``(eligible, Gumbel order bits, -index)``, computed in row
-    chunks so no ``[N, N]`` int64 key is ever whole."""
-    n_rows, n = eligible.shape
+    Ranks on ``(eligible, Gumbel order bits, -index)``, computed in chunks
+    (``threefry.draw_chunks``) so no ``[N, N]`` int64 key is ever whole."""
+    *batch, n_rows, n = eligible.shape
     k = min(k, n)
     dev = eligible.device
     rev_col = (_COL - 1) - torch.arange(n, dtype=torch.int64, device=dev)
-    idx = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
-    valid = torch.empty((n_rows, k), dtype=torch.bool, device=dev)
-    for r0, r1 in threefry.row_chunks(n_rows, n):
-        el = eligible[r0:r1]
+    idx = torch.empty((*batch, n_rows, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((*batch, n_rows, k), dtype=torch.bool, device=dev)
+    if deterministic:  # no draw: chunk by the mask's own shape
+        key = (torch.zeros(batch, dtype=torch.int64, device=dev),) * 2 if batch else (0, 0)
+    for part, at, rows in threefry.draw_chunks(key, n_rows, n):
+        el = eligible[at]
         if deterministic:
             v = el.to(torch.int64)
         else:
-            g = threefry.gumbel_order_bits(key, (n_rows, n), dev, (r0, r1))
+            g = threefry.gumbel_order_bits(part, (n_rows, n), dev, rows)
             v = torch.where(el, g + 1, 0)
         top = torch.topk(v * _COL + rev_col, k, dim=-1, largest=True, sorted=True).indices
-        idx[r0:r1] = top.to(torch.int32)
-        valid[r0:r1] = el.gather(-1, top)
+        idx[at] = top.to(torch.int32)
+        valid[at] = el.gather(-1, top)
     return idx, valid
 
 
@@ -142,16 +150,19 @@ def bernoulli_matrix(
 ) -> torch.Tensor:
     """Bernoulli draws with per-element (broadcastable) float32 probabilities.
 
-    Deterministic mode: every draw with positive probability succeeds."""
+    ``shape`` is one mesh's draw; under ``[E]`` key words the result is
+    ``[E, *shape]``. Deterministic mode: every draw with positive
+    probability succeeds."""
+    full = threefry.batch_shape(key) + tuple(shape)
     if deterministic:
-        return (prob > 0).expand(shape)
-    prob = prob.expand(shape)
+        return (prob > 0).expand(full)
+    prob = prob.expand(full)
     if len(shape) == 1:
         return threefry.uniform(key, shape, prob.device) < prob
-    out = torch.empty(shape, dtype=torch.bool, device=prob.device)
-    for r0, r1 in threefry.row_chunks(*shape):
-        u = threefry.bits_to_uniform(threefry.random_bits(key, shape, prob.device, (r0, r1)))
-        out[r0:r1] = u < prob[r0:r1]
+    out = torch.empty(full, dtype=torch.bool, device=prob.device)
+    for part, at, rows in threefry.draw_chunks(key, *shape):
+        u = threefry.bits_to_uniform(threefry.random_bits(part, shape, prob.device, rows))
+        out[at] = u < prob[at]
     return out
 
 

@@ -13,11 +13,16 @@ What the JAX tick draws, reproduced bit for bit (jax 0.9.0 with
   "low") is ``-log(-log(max(u, tiny)))``: strictly increasing in ``u``, so
   an ORDER of Gumbel draws is the order of the 23 bits ``bits >> 9``.
 
-Keys are pairs of Python ints (derived on the host: a key is two words).
+A key is a pair of words: two Python ints (derived on the host), or two
+int64 tensors holding unsigned 32-bit values, of shape ``[]`` (one mesh)
+or ``[E]`` (an ensemble, one key per member). A draw under ``[E]`` keys
+has a leading ``[E]`` axis, and member e's slice is the draw of its own
+key over counters ``0 .. cells - 1``: the batch ``jax.vmap`` gives.
 Shaped draws run on the tensor's device in int64 holding unsigned 32-bit
-values, row chunk by row chunk, so an ``[N, N]`` draw never needs more
-than a few chunk-sized temporaries: the counter of a cell is its flat
-index, so chunking changes no bit.
+values, chunk by chunk (rows of a member, or whole members), so an
+``[N, N]`` or ``[E, N, N]`` draw never needs more than a few chunk-sized
+temporaries: the counter of a cell is its flat index within its member,
+so chunking changes no bit.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 # membership fingerprint): 2^22 cells keep each int64 temporary at 32 MiB.
 CHUNK_CELLS = 1 << 22
 
-Key = tuple[int, int]
+Key = tuple  # (k0, k1): two ints, or two int64 tensors of one shape ([] or [E])
 
 
 def _rotl(x, r: int, scalar: bool):
@@ -39,13 +44,21 @@ def _rotl(x, r: int, scalar: bool):
     return ((x << r) & M32) | (x >> (32 - r))
 
 
+def _u32(x):
+    """A word as its unsigned value: ``x & M32`` (int64 for a tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & M32
+    return x & M32
+
+
 def threefry2x32(key: Key, x0, x1):
     """Threefry-2x32 (20 rounds) of counter words ``(x0, x1)`` under ``key``.
 
-    ``x0``/``x1`` are Python ints or int64 tensors of unsigned 32-bit
-    values; the result has the same kind."""
-    scalar = isinstance(x0, int)
-    k0, k1 = key[0] & M32, key[1] & M32
+    Key and counter words are Python ints or int64 tensors of unsigned
+    32-bit values, broadcast together; the result is ints when all are
+    ints, else tensors."""
+    scalar = not any(isinstance(v, torch.Tensor) for v in (x0, x1, *key))
+    k0, k1 = _u32(key[0]), _u32(key[1])
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
@@ -58,24 +71,39 @@ def threefry2x32(key: Key, x0, x1):
     return x0, x1
 
 
-def prng_key(seed: int) -> Key:
-    """``jax.random.PRNGKey(seed)`` for a 32-bit seed."""
-    return (0, seed & M32)
+def prng_key(seed) -> Key:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed (an int or a tensor)."""
+    seed = _u32(seed)
+    return (torch.zeros_like(seed) if isinstance(seed, torch.Tensor) else 0, seed)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)``."""
-    return threefry2x32(key, 0, data & M32)
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in(key, data)``; ``data`` an int or a tensor that
+    broadcasts against the key words."""
+    return threefry2x32(key, 0, _u32(data))
+
+
+def batch_shape(key: Key) -> tuple[int, ...]:
+    """The ensemble shape of a key: ``()`` for one mesh, ``(E,)`` for ``[E]`` words."""
+    return tuple(key[0].shape) if isinstance(key[0], torch.Tensor) else ()
+
+
+def _key_slice(key: Key, e0: int, e1: int) -> Key:
+    """Members ``e0:e1`` of an ensemble key."""
+    return key[0][e0:e1], key[1][e0:e1]
 
 
 def _bits_flat(key: Key, start: int, count: int, device) -> torch.Tensor:
     c = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    if batch_shape(key):
+        key = (key[0][..., None], key[1][..., None])  # [E, 1] against [count]
     b0, b1 = threefry2x32(key, c >> 32, c & M32)
     return b0 ^ b1
 
 
 def random_bits(key: Key, shape: tuple[int, ...], device, rows=None) -> torch.Tensor:
-    """32 random bits per cell (int64, unsigned value) of a draw of ``shape``.
+    """32 random bits per cell (int64, unsigned value) of a draw of ``shape``,
+    with the key's ensemble axis in front.
 
     ``rows=(r0, r1)`` returns only rows ``r0:r1`` of a 2-D draw -- the same
     bits as slicing the whole draw."""
@@ -83,7 +111,8 @@ def random_bits(key: Key, shape: tuple[int, ...], device, rows=None) -> torch.Te
         return _bits_flat(key, 0, shape[0], device)
     n_rows, n_cols = shape
     r0, r1 = rows if rows is not None else (0, n_rows)
-    return _bits_flat(key, r0 * n_cols, (r1 - r0) * n_cols, device).view(r1 - r0, n_cols)
+    flat = _bits_flat(key, r0 * n_cols, (r1 - r0) * n_cols, device)
+    return flat.view(*flat.shape[:-1], r1 - r0, n_cols)
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -99,13 +128,39 @@ def row_chunks(n_rows: int, n_cols: int):
         yield r0, min(n_rows, r0 + step)
 
 
+def draw_chunks(key: Key, n_rows: int, n_cols: int):
+    """Blocks of a 2-D draw of at most ``CHUNK_CELLS`` cells (one row chunk
+    when the draw has more), as ``(key part, out index, (r0, r1))``: the
+    block's draw is ``random_bits(key part, (n_rows, n_cols), dev, (r0,
+    r1))`` and it lands at ``out[out index]`` of the ``batch + shape`` result.
+    One mesh: row chunks. An ensemble: whole members while they fit, else
+    row chunks of one member at a time."""
+    batch = batch_shape(key)
+    if not batch:
+        for r0, r1 in row_chunks(n_rows, n_cols):
+            yield key, (slice(r0, r1),), (r0, r1)
+        return
+    (members,) = batch
+    per_member = n_rows * n_cols
+    if per_member >= CHUNK_CELLS:
+        for e in range(members):
+            for r0, r1 in row_chunks(n_rows, n_cols):
+                yield _key_slice(key, e, e + 1), (slice(e, e + 1), slice(r0, r1)), (r0, r1)
+        return
+    step = CHUNK_CELLS // max(per_member, 1)
+    for e0 in range(0, members, step):
+        e1 = min(members, e0 + step)
+        yield _key_slice(key, e0, e1), (slice(e0, e1),), (0, n_rows)
+
+
 def uniform(key: Key, shape: tuple[int, ...], device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, dtype=float32)``."""
+    """``jax.random.uniform(key, shape, dtype=float32)`` (under ``[E]`` keys,
+    ``[E, *shape]``: each member's own draw)."""
     if len(shape) == 1:
         return bits_to_uniform(random_bits(key, shape, device))
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    for r0, r1 in row_chunks(*shape):
-        out[r0:r1] = bits_to_uniform(random_bits(key, shape, device, (r0, r1)))
+    out = torch.empty(batch_shape(key) + tuple(shape), dtype=torch.float32, device=device)
+    for part, at, rows in draw_chunks(key, *shape):
+        out[at] = bits_to_uniform(random_bits(part, shape, device, rows))
     return out
 
 

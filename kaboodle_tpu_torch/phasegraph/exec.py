@@ -34,6 +34,21 @@ program's ping-target draw (``cfg.use_pallas_oldest_k``). Unlike the JAX
 package there is no ``N % 128`` guard: a flag that is on means the kernel
 (on a CUDA tensor) or its plain version (on a CPU tensor), for any N.
 
+The same tick advances an ensemble: every leaf of the ``MeshState`` may
+carry a leading ``[E]`` axis (planes ``[E, N, N]``, vectors ``[E, N]``,
+``tick`` ``[E]``, ``key`` ``[E, 2]``, ``TickInputs.drop_rate`` ``[E]``),
+and member e then gets exactly its standalone tick -- the port of the JAX
+package's ``vmap`` over this function (``derive.py::make_fleet_tick``).
+Each gate stays one host sync for the whole ensemble ("does any member
+need this phase"); where a gated branch is an identity for a member whose
+own predicate is false the branch runs for all, and where it is not (the
+proxies, ``fp2``/``n2``, the G-phase recounts) the result is selected per
+member, as ``vmap`` turns ``lax.cond`` into a select. Reductions that feed
+metrics and counters reduce per member; index reads go through the
+per-member helpers ``_take`` / ``_take_rows``. The tick and the draw keys
+are read on the device (``rng.state_draw_keys``), so only the gates fetch
+to the host -- and K3's threshold, an int argument of the kernel.
+
 ``telemetry=True`` builds the same tick with protocol counters added
 (``telemetry/counters.py``): it returns ``(state, TickTelemetry(metrics,
 counters, fp))``, with the JAX package's counter definitions bit for bit.
@@ -76,6 +91,11 @@ from kaboodle_tpu_torch.telemetry.counters import RECORD_BYTES, ProtocolCounters
 
 INF = torch.iinfo(torch.int32).max
 _NAN = float("nan")
+# The JAX fleet's refusal (derive.py:115-119): the kernels take one mesh.
+PALLAS_BATCH_ERROR = (
+    "fleet: the fused Pallas stage kernels do not support vmap; "
+    "use the default jnp formulations (use_pallas_*=False)"
+)
 
 
 def dispatch_pred_terms(cfg: SwimConfig) -> tuple[str, ...]:
@@ -89,9 +109,12 @@ def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     An int8 product in PyTorch accumulates in int8 and wraps, so the CPU
     multiplies int32 and the card takes ``torch._int_mm`` (int8 in, int32
     out). Its operands must have every side a multiple of 8 and more than
-    16 rows; other shapes are zero-padded to that."""
+    16 rows; other shapes are zero-padded to that. ``[E, ., .]`` operands
+    multiply per member (``_int_mm`` is 2-D: one product a member)."""
     if a.device.type != "cuda":
         return (a.to(torch.int32) @ b.to(torch.int32)) > 0
+    if a.dim() == 3:
+        return torch.stack([_bool_matmul(a[e], b[e]) for e in range(a.shape[0])])
     m, k = a.shape
     n = b.shape[1]
     if m > 16 and m % 8 == 0 and k % 8 == 0 and n % 8 == 0:
@@ -109,26 +132,64 @@ def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(ap, bp)[:m, :n] > 0
 
 
+def _member_offset(x: torch.Tensor, batch: tuple, stride: int):
+    """``x`` plus ``e * stride`` along the leading ``[E]`` of ``batch``, so a
+    per-member index addresses member e's block of a flattened tensor."""
+    if not batch:
+        return x
+    e = torch.arange(batch[0], dtype=torch.int64, device=x.device)
+    return x + (e * stride).view(-1, *([1] * (x.dim() - 1)))
+
+
+def _take(src: torch.Tensor, i: torch.Tensor, mesh_dims: int) -> torch.Tensor:
+    """``src[e][i[e]]`` per member: ``i`` indexes the flattened last
+    ``mesh_dims`` dims of ``src``, and carries ``src``'s leading batch dims."""
+    batch = tuple(src.shape[: src.dim() - mesh_dims])
+    cells = src[(0,) * len(batch)].numel() if batch else src.numel()
+    flat = _member_offset(i.long(), batch, cells)
+    return src.reshape(-1)[flat.reshape(-1)].view(i.shape)
+
+
+def _take_vec(vec: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``vec[i]`` per member, -1-safe (clipped): ``vec`` ``[..., N]``."""
+    return _take(vec, i.clamp(min=0), 1)
+
+
+def _take_cell(plane: torch.Tensor, s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``plane[s, d]`` per member, -1-safe: ``plane`` ``[..., N, N]``."""
+    n = plane.shape[-1]
+    return _take(plane, s.clamp(min=0).long() * n + d.clamp(min=0).long(), 2)
+
+
+def _take_rows(plane: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``plane[i]`` (whole rows) per member, -1-safe: ``[..., N, N]``."""
+    n = plane.shape[-1]
+    batch = tuple(plane.shape[:-2])
+    flat = _member_offset(i.clamp(min=0).long(), batch, plane.shape[-2])
+    return plane.reshape(-1, n)[flat.reshape(-1)].view(*i.shape, n)
+
+
 def _scatter_or(dst: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, val: torch.Tensor):
-    """``dst[rows, cols] |= val`` with -1-safe (clipped) indices.
+    """``dst[rows, cols] |= val`` per member, with -1-safe (clipped) indices.
 
     Only the True updates are written, so duplicate indices cannot let a
     False overwrite a True."""
-    rows = rows.expand_as(val)[val].clamp(min=0).long()
-    cols = cols.expand_as(val)[val].clamp(min=0).long()
+    n = dst.shape[-1]
+    flat = rows.clamp(min=0).long() * n + cols.clamp(min=0).long()
+    flat = _member_offset(flat.expand(val.shape), tuple(dst.shape[:-2]), n * n)
     out = dst.clone()
-    out[rows, cols] = True
+    out.view(-1)[flat[val]] = True
     return out
 
 
 def _col_mark(idx, tgt, val):
     """mark[d, s] = (tgt[s] == d) & val[s] -- sender s's datagram lands at its target."""
-    return (idx[:, None] == tgt[None, :]) & val[None, :]
+    return (idx[:, None] == tgt[..., None, :]) & val[..., None, :]
 
 
 def _row_mark(idx, tgt, val):
     """mark[s, d] = (tgt[s] == d) & val[s] -- row s marks its own target."""
-    return (idx[None, :] == tgt[:, None]) & val[:, None]
+    return (idx[None, :] == tgt[..., :, None]) & val[..., :, None]
 
 
 def _add32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -137,12 +198,15 @@ def _add32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _drop_gate(ok: torch.Tensor, key: threefry.Key, rate: torch.Tensor) -> torch.Tensor:
-    """``ok & (uniform(key, (n, n)) >= rate)``, drawn in row chunks."""
+    """``ok & (uniform(key, (n, n)) >= rate)``, drawn in chunks; per member
+    under ``[E]`` keys and rates (a rate of 0 keeps every edge: ``u >= 0``)."""
     out = ok.clone()
-    shape = tuple(ok.shape)
-    for r0, r1 in threefry.row_chunks(*shape):
-        u = threefry.bits_to_uniform(threefry.random_bits(key, shape, ok.device, (r0, r1)))
-        out[r0:r1] &= u >= rate
+    draw = tuple(ok.shape[-2:])
+    batched = rate.dim() > 0
+    rate = rate[..., None, None]
+    for part, at, rows in threefry.draw_chunks(key, *draw):
+        u = threefry.bits_to_uniform(threefry.random_bits(part, draw, ok.device, rows))
+        out[at] &= u >= (rate[at[0]] if batched else rate)  # at[0]: the members
     return out
 
 
@@ -160,11 +224,15 @@ def make_tick_fn(
     fused program alone with no dispatch guard -- the caller then owns the
     precondition that no tick has a Join broadcast or suspicion activity.
     ``telemetry=True`` returns ``(state, TickTelemetry)`` instead of
-    ``(state, TickMetrics)`` (module docstring).
+    ``(state, TickMetrics)`` (module docstring). The tick takes one mesh or
+    an ensemble (leaves with a leading ``[E]`` axis; metrics and counters
+    then ``[E]``, digests ``[E, N]``); an ensemble with a kernel flag on
+    raises ``ValueError``, the kernels taking one mesh.
     """
     if program not in (None, "full", "fused"):
         raise ValueError(f"unknown program {program!r}")
     det = cfg.deterministic
+    kernel_flags = cfg.use_pallas_fp or cfg.use_pallas_oldest_k or cfg.use_pallas_suspicion
     pred_terms = dispatch_pred_terms(cfg)
     gossip_backdate = cfg.max_peer_share_age_ticks if cfg.backdate_gossip_inserts else 0
     timeout = cfg.ping_timeout_ticks
@@ -172,66 +240,89 @@ def make_tick_fn(
     def tick(st: MeshState, inp: TickInputs) -> tuple[MeshState, TickMetrics]:
         n = st.n
         dev = st.device
-        t = int(st.tick)
-        key = tuple(int(w) & threefry.M32 for w in st.key.tolist())
-        key_proxy, key_ping, key_bern, key_drop = pg_rng.tick_draw_keys(key, t)
+        batch = tuple(st.state.shape[:-2])  # () for one mesh, (E,) for an ensemble
+        nb = len(batch)
+        if nb and kernel_flags:
+            raise ValueError(PALLAS_BATCH_ERROR)
+        t = st.tick  # read on the device, never fetched
+        tp, tv = t.view(*batch, 1, 1), t.view(*batch, 1)  # against planes / [.., N] rows
+        tT = tp.to(st.timer.dtype)  # what a timer write stores (int16 stays int16)
+        key_proxy, key_ping, key_bern, key_drop = pg_rng.state_draw_keys(st.key, t)
 
         idx = torch.arange(n, dtype=torch.int32, device=dev)
+        rows = idx.expand(*batch, n)  # each row's own index, as a per-member index
         eye = idx[:, None] == idx[None, :]
         S, T = st.state, st.timer
         lat, idv = st.latency, st.id_view
         has_lat = lat is not None
         has_idv = idv is not None
         alive, never_b, last_b = st.alive, st.never_broadcast, st.last_broadcast
-        id_row = st.identity[None, :]
+        id_row = st.identity[..., None, :]
         zero32 = torch.zeros((), dtype=torch.int32, device=dev)
+        zero_b = torch.zeros(batch, dtype=torch.int32, device=dev)  # a per-member 0
+
+        def msum(x, dtype=None):
+            """Sum over each member's cells (the whole tensor for one mesh)."""
+            if not nb:
+                return x.sum(dtype=dtype)
+            return x.sum(dim=tuple(range(nb, x.dim())), dtype=dtype)
+
+        def select(pred, a, b):
+            """Per member: ``a`` where the member's own gate ``pred`` holds, else
+            its skip branch ``b``. One mesh only reaches this inside the gate
+            that took ``a``, so ``a`` it is."""
+            if not nb:
+                return a
+            return torch.where(pred.view(*batch, *([1] * (a.dim() - nb))), a, b)
 
         # ---- churn: silent kill (Q8) + revive-with-reset --------------------
         if faulty:
             alive = (alive & ~inp.kill) | inp.revive
             rv = inp.revive
-            rvc = rv[:, None]
+            rvc = rv[..., :, None]
             S = torch.where(rvc, torch.where(eye, KNOWN, 0).to(torch.int8), S)
-            T = torch.where(rvc, torch.where(eye, t, 0).to(T.dtype), T)
+            T = torch.where(rvc, torch.where(eye, tT, 0).to(T.dtype), T)
             if has_lat:
                 lat = torch.where(rvc, _NAN, lat)
             if has_idv:
                 idv = torch.where(rvc, torch.where(eye, id_row, zero32), idv)
             never_b = never_b | rv
         else:
-            rv = torch.zeros((n,), dtype=torch.bool, device=dev)
+            rv = torch.zeros((*batch, n), dtype=torch.bool, device=dev)
 
         # ---- delivery gate: ok[s, d] ----------------------------------------
         if faulty:
-            ok = alive[:, None] & alive[None, :]
-            ok = ok & (inp.partition[:, None] == inp.partition[None, :])
+            ok = alive[..., :, None] & alive[..., None, :]
+            ok = ok & (inp.partition[..., :, None] == inp.partition[..., None, :])
             if inp.drop_ok is not None:
                 ok = ok & inp.drop_ok
-            elif bool(inp.drop_rate > 0):
+            elif bool((inp.drop_rate > 0).any()):
                 ok = _drop_gate(ok, key_drop, inp.drop_rate)
 
             def ok_edge(s, d):
-                return ok[s.clamp(min=0).long(), d.clamp(min=0).long()]
+                return _take_cell(ok, s, d)
 
             def ok_outer():
                 return ok
         else:
 
             def ok_edge(s, d):
-                return alive[s.clamp(min=0).long()] & alive[d.clamp(min=0).long()]
+                return _take_vec(alive, s) & _take_vec(alive, d)
 
             def ok_outer():
-                return alive[:, None] & alive[None, :]
+                return alive[..., :, None] & alive[..., None, :]
 
         # ---- Phase-A row stats on the pre-tick snapshot ---------------------
         S0, T0 = S, T
-        thr = t - timeout
+        thr = tp - timeout
         if cfg.use_pallas_suspicion:
+            # The kernel takes its threshold as an int: the tick's one fetch
+            # of its own state (one mesh only; an ensemble runs no kernel).
             row_count0, jstar_pre, has_timed, has_cand_pre, wfip_any = fused_suspicion(
-                S, T, alive, thr
+                S, T, alive, int(t) - timeout
             )
         else:
-            aged0 = alive[:, None] & (T0.to(torch.int32) <= thr)
+            aged0 = alive[..., :, None] & (T0.to(torch.int32) <= thr)
             row_count0 = (S > 0).sum(dim=-1, dtype=torch.int32)
             has_timed = (aged0 & (S0 == WAITING_FOR_PING)).any(dim=-1)
             wfip_any = (aged0 & (S0 == WAITING_FOR_INDIRECT_PING)).any(dim=-1)
@@ -239,7 +330,7 @@ def make_tick_fn(
         any_a2 = wfip_any.any() | has_timed.any()
 
         rec_hash = peer_record_hash(idx, st.identity)
-        rec_row = rec_hash[None, :]
+        rec_row = rec_hash[..., None, :]
         rec64 = as_u32(rec_row)
         pid_row = idx.to(torch.int64)[None, :]
 
@@ -254,13 +345,13 @@ def make_tick_fn(
             """Q1 mark pass for one delivery wave (mark[d, s]: s reached d)."""
             if has_lat:
                 waiting = (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING)
-                sample = (t - T.to(torch.int32)).to(torch.float32)
+                sample = (tp - T.to(torch.int32)).to(torch.float32)
                 upd = torch.where(torch.isnan(lat), sample, 0.8 * sample + 0.2 * lat)
                 lat = torch.where(mark & waiting, upd, lat)
             if has_idv:
                 idv = torch.where(mark, id_row, idv)
             S = torch.where(mark, KNOWN, S)
-            T = torch.where(mark, t, T)
+            T = torch.where(mark, tT, T)
             return S, T, lat, idv
 
         def apply_marks_delta(S, T, lat, idv, mark):
@@ -281,13 +372,13 @@ def make_tick_fn(
         if cfg.join_broadcast_enabled:
             lonely = row_count0 <= 1
             join_b = alive & (
-                never_b | (lonely & ((t - last_b) >= cfg.rebroadcast_interval_ticks))
+                never_b | (lonely & ((tv - last_b) >= cfg.rebroadcast_interval_ticks))
             )
-            last_b = torch.where(join_b, t, last_b)
+            last_b = torch.where(join_b, tv, last_b)
             never_b = never_b & ~join_b
             any_join = join_b.any()
         else:
-            join_b = torch.zeros((n,), dtype=torch.bool, device=dev)
+            join_b = torch.zeros((*batch, n), dtype=torch.bool, device=dev)
             any_join = torch.zeros((), dtype=torch.bool, device=dev)
 
         # A4: manual pings; self-pings and out-of-range targets drop (D8).
@@ -300,12 +391,15 @@ def make_tick_fn(
             """Call-G apply (kaboodle.rs:707-740), shared by both programs.
 
             The telemetry build also returns the records in the replies SENT
-            (int64 []): a partner answers every delivered request (``del_kpr``
-            gates the send, ``del_rep`` only the reply's delivery), and the
-            share excludes the requester, subtracted per edge."""
+            (int64 per member): a partner answers every delivered request
+            (``del_kpr`` gates the send, ``del_rep`` only the reply's
+            delivery), and the share excludes the requester, subtracted per
+            edge. A member with no delivered request keeps its state and
+            ``(fp_g, n_g)``, as its own skip branch does."""
             if not bool(del_kpr.any()):
                 if telemetry:
-                    return S, T, lat, idv, fp_g, n_g, torch.zeros((), dtype=torch.int64, device=dev)
+                    return S, T, lat, idv, fp_g, n_g, torch.zeros(batch, dtype=torch.int64,
+                                                                  device=dev)
                 return S, T, lat, idv, fp_g, n_g
             mark_g = _col_mark(idx, partner, del_kpr)  # partner marks requester
             S, T, lat, idv = apply_marks(S, T, lat, idv, mark_g)
@@ -314,45 +408,47 @@ def make_tick_fn(
 
             def share_plane():
                 return (S_share == KNOWN) & ~eye & (
-                    (t - T_share.to(torch.int32)) < cfg.max_peer_share_age_ticks
+                    (tp - T_share.to(torch.int32)) < cfg.max_peer_share_age_ticks
                 )
 
             share_f = None
             if telemetry:
-                pc = partner.clamp(min=0).long()
                 share_f = share_plane()
                 share_cnt = share_f.sum(dim=-1, dtype=torch.int32)
-                own = share_f[pc, idx.long()].to(torch.int32)  # the requester's own cell
-                ae_records = torch.where(del_kpr, share_cnt[pc] - own, 0).sum(dtype=torch.int64)
+                own = _take_cell(share_f, partner, rows).to(torch.int32)  # the requester's cell
+                ae_records = msum(torch.where(del_kpr, _take_vec(share_cnt, partner) - own, 0),
+                                  torch.int64)
             mark_rep = _row_mark(idx, partner, del_rep)  # requester marks partner
             S = torch.where(mark_rep, KNOWN, S)
-            T = torch.where(mark_rep, t, T)
+            T = torch.where(mark_rep, tT, T)
             if bool(del_rep.any()):
                 if share_f is None:
                     share_f = share_plane()
-                srow = share_f[partner.clamp(min=0).long()]
-                rep_ins = del_rep[:, None] & srow & ~eye & ~(S > 0)
+                srow = _take_rows(share_f, partner)
+                rep_ins = del_rep[..., :, None] & srow & ~eye & ~(S > 0)
                 S = torch.where(rep_ins, KNOWN, S)
-                T = torch.where(rep_ins, t - gossip_backdate, T)
+                T = torch.where(rep_ins, (tp - gossip_backdate).to(T.dtype), T)
                 if has_idv:
                     idv = torch.where(rep_ins, id_row, idv)
             fp_f, n_f = fp_count(S, idv)
+            kpr_m = del_kpr.any(dim=-1)
+            fp_f, n_f = select(kpr_m, fp_f, fp_g), select(kpr_m, n_f, n_g)
             if telemetry:
                 return S, T, lat, idv, fp_f, n_f, ae_records
             return S, T, lat, idv, fp_f, n_f
 
         def _ae_phase01(fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt):
             """Anti-entropy candidate phases 0-1 (take_sync_request order)."""
-            m0 = (st.kpr_partner[None, :] == idx[:, None]) & alive[:, None] & ~rv[:, None]
-            match0 = m0 & (st.kpr_fp[None, :] != fp_g[:, None]) & (
-                n_g[:, None] <= st.kpr_n[None, :]
+            m0 = (st.kpr_partner[..., None, :] == idx[:, None]) & alive[..., :, None] & (
+                ~rv[..., :, None])
+            match0 = m0 & (st.kpr_fp[..., None, :] != fp_g[..., :, None]) & (
+                n_g[..., :, None] <= st.kpr_n[..., None, :]
             )
             prio0 = torch.where(match0, idx[None, :], INF).amin(dim=-1)
             peer0 = prio0  # sender == candidate peer for KPR candidates
-            pt = ping_tgt.clamp(min=0).long()
-            mt = man_tgt.clamp(min=0).long()
-            m_d = del_ack & (fp1[pt] != fp_g) & (n_g <= n1[pt])
-            m_m = del_ack_man & (fp1[mt] != fp_g) & (n_g <= n1[mt])
+            m_d = del_ack & (_take_vec(fp1, ping_tgt) != fp_g) & (n_g <= _take_vec(n1, ping_tgt))
+            m_m = del_ack_man & (_take_vec(fp1, man_tgt) != fp_g) & (
+                n_g <= _take_vec(n1, man_tgt))
             prio_d = torch.where(m_d, n + ping_tgt, INF)
             prio_m = torch.where(m_m, n + man_tgt, INF)
             prio1 = torch.minimum(prio_d, prio_m)
@@ -369,7 +465,7 @@ def make_tick_fn(
             cells of alive rows at tick end) are filled in here, and ``fp_f``
             rides out as the flight recorder's digest plane."""
             converged, fpa_min, fpa_max, n_alive = fingerprint_agreement(alive, fp_f)
-            agree = (alive & (fp_f == fpa_min)).sum(dtype=torch.int32)
+            agree = msum(alive & (fp_f == fpa_min[..., None]), torch.int32)
             denom = n_alive.clamp(min=1)
             new_state = MeshState(
                 state=S, timer=T, alive=alive, identity=st.identity,
@@ -381,24 +477,23 @@ def make_tick_fn(
                 messages_delivered=msgs.to(torch.int32),
                 converged=converged,
                 agree_fraction=agree.to(torch.float32) / denom,
-                mean_membership=torch.where(alive, n_f, 0).to(torch.float32).sum() / denom,
+                mean_membership=msum(torch.where(alive, n_f, 0).to(torch.float32)) / denom,
                 fingerprint_min=fpa_min,
                 fingerprint_max=fpa_max,
             )
             if telemetry:
                 counters = dataclasses.replace(
                     counters,
-                    suspicions_refuted=((S0 == WAITING_FOR_INDIRECT_PING) & (S == KNOWN)).sum(
-                        dtype=torch.int32),
-                    armed_timers=(alive[:, None] & (
-                        (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING))).sum(
-                        dtype=torch.int32),
+                    suspicions_refuted=msum((S0 == WAITING_FOR_INDIRECT_PING) & (S == KNOWN),
+                                            torch.int32),
+                    armed_timers=msum(alive[..., :, None] & (
+                        (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING)), torch.int32),
                 )
                 return new_state, TickTelemetry(metrics=metrics, counters=counters, fp=fp_f)
             return new_state, metrics
 
         def _i32(x):
-            return x.sum(dtype=torch.int32)
+            return msum(x, torch.int32)
 
         def _gossip_bytes(records):
             """RECORD_BYTES x records mod 2^32, as int32 bits (int64 ``records``)."""
@@ -410,41 +505,44 @@ def make_tick_fn(
             if cfg.use_pallas_suspicion:
                 jstar, has_cand = jstar_pre, has_cand_pre
             else:
-                timed_wfp = alive[:, None] & (S0 == WAITING_FOR_PING) & (
+                timed_wfp = alive[..., :, None] & (S0 == WAITING_FOR_PING) & (
                     T0.to(torch.int32) <= thr
                 )
                 tsel = torch.where(timed_wfp, T0, torch.iinfo(T0.dtype).max)
                 min_t = tsel.amin(dim=-1)
-                jstar_mask = timed_wfp & (T0 == min_t[:, None])
+                jstar_mask = timed_wfp & (T0 == min_t[..., None])
                 jstar = torch.where(jstar_mask, idx[None, :], INF).amin(dim=-1)
                 jstar = torch.where(has_timed, jstar, -1).to(torch.int32)
                 has_cand = ((S0 == KNOWN) & ~eye).any(dim=-1)
             escalate = has_timed & has_cand
             insta_remove = has_timed & ~has_cand  # no proxies -> drop (:599-605)
-            jstar_cell = idx[None, :] == jstar[:, None]
+            jstar_cell = idx[None, :] == jstar[..., :, None]
             any_rem = bool(wfip_any.any() | insta_remove.any())
             escalating = bool(escalate.any())
             joining = bool(any_join)
+            esc_m = escalate.any(dim=-1)  # each member's own escalation gate
 
             # A2: handle_suspected_peers on the pre-tick snapshot.
             k_prox = min(cfg.num_indirect_ping_peers, n)
+            no_proxies = torch.zeros((*batch, n, k_prox), dtype=torch.int32, device=dev)
             if escalating:
                 known_cand = (S0 == KNOWN) & ~eye
                 proxies, proxies_valid = choose_k_members(
                     known_cand, cfg.num_indirect_ping_peers, key_proxy, det
                 )
+                proxies = select(esc_m, proxies, no_proxies)
             else:
-                proxies = torch.zeros((n, k_prox), dtype=torch.int32, device=dev)
-                proxies_valid = torch.zeros((n, k_prox), dtype=torch.bool, device=dev)
-            proxies_valid = proxies_valid & escalate[:, None]
+                proxies = no_proxies
+                proxies_valid = torch.zeros((*batch, n, k_prox), dtype=torch.bool, device=dev)
+            proxies_valid = proxies_valid & escalate[..., :, None]
 
             def _a2_rem():
-                r = alive[:, None] & (S0 == WAITING_FOR_INDIRECT_PING) & (
+                r = alive[..., :, None] & (S0 == WAITING_FOR_INDIRECT_PING) & (
                     T0.to(torch.int32) <= thr
                 )
-                return r | (insta_remove[:, None] & jstar_cell)
+                return r | (insta_remove[..., :, None] & jstar_cell)
 
-            deaths = zero32
+            deaths = zero_b
             if bool(any_a2):
                 rem = _a2_rem()
                 if telemetry:
@@ -454,9 +552,9 @@ def make_tick_fn(
                 S_ = torch.where(rem, 0, S_)
                 if has_lat:
                     lat_ = torch.where(rem, _NAN, lat_)
-                esc_cell = escalate[:, None] & jstar_cell
+                esc_cell = escalate[..., :, None] & jstar_cell
                 S_ = torch.where(esc_cell, WAITING_FOR_INDIRECT_PING, S_)
-                T_ = torch.where(esc_cell, t, T_)
+                T_ = torch.where(esc_cell, tT, T_)
 
             # A3: ping_random_peer (kaboodle.rs:655-703) on the post-A2 state.
             if cfg.use_pallas_oldest_k:
@@ -464,7 +562,7 @@ def make_tick_fn(
                 cand_idx, cand_valid = fused_oldest_k(S_, T_, alive, kk)
                 ping_tgt = choose_among_candidates(cand_idx, cand_valid, key_ping, det)
             else:
-                elig = alive[:, None] & (S_ == KNOWN) & ~eye
+                elig = alive[..., :, None] & (S_ == KNOWN) & ~eye
                 ping_tgt = choose_one_of_oldest_k(
                     T_, elig, cfg.num_candidate_target_peers, key_ping, det,
                     method=cfg.oldest_k_method,
@@ -472,7 +570,7 @@ def make_tick_fn(
             has_ping = ping_tgt >= 0
             tgt_cell = _row_mark(idx, ping_tgt, has_ping)
             S_ = torch.where(tgt_cell, WAITING_FOR_PING, S_)
-            T_ = torch.where(tgt_cell, t, T_)
+            T_ = torch.where(tgt_cell, tT, T_)
 
             member_a = S_ > 0
             row_count_a = member_a.sum(dim=-1, dtype=torch.int32)
@@ -481,14 +579,14 @@ def make_tick_fn(
             if cfg.join_broadcast_enabled:
                 # [receiver, origin]; row-major again after the transpose, so
                 # every plane written through it stays contiguous.
-                Jm = (join_b[None, :] & ok_outer().T & ~eye).contiguous()
+                Jm = (join_b[..., None, :] & ok_outer().transpose(-1, -2) & ~eye).contiguous()
                 is_new_ro = Jm & ~member_a
                 S_ = torch.where(Jm, KNOWN, S_)
-                T_ = torch.where(Jm, t, T_)
+                T_ = torch.where(Jm, tT, T_)
                 if has_idv:
                     idv_ = torch.where(Jm, id_row, idv_)
             else:
-                Jm = torch.zeros((n, n), dtype=torch.bool, device=dev)
+                Jm = torch.zeros((*batch, n, n), dtype=torch.bool, device=dev)
                 is_new_ro = Jm
 
             if not cfg.faithful_failed_broadcast and any_rem:
@@ -496,7 +594,7 @@ def make_tick_fn(
                 # same-tick Join(j) wins only against origins i < j.
                 rem = _a2_rem()
                 rem_gt = rem & (idx[:, None] > idx[None, :])
-                ok_t = ok_outer().T
+                ok_t = ok_outer().transpose(-1, -2)
                 fail_del = ~eye & torch.where(
                     Jm, _bool_matmul(ok_t, rem_gt), _bool_matmul(ok_t, rem)
                 )
@@ -506,9 +604,10 @@ def make_tick_fn(
 
             # Join responses (kaboodle.rs:333-392) and the gossip union.
             reply_del = gossip = None
-            join_records = torch.zeros((), dtype=torch.int64, device=dev) if telemetry else None
+            join_records = torch.zeros(batch, dtype=torch.int64, device=dev) if telemetry else None
             if cfg.join_broadcast_enabled and joining:
-                n_after = row_count_a[:, None] + torch.cumsum(is_new_ro, dim=1, dtype=torch.int32)
+                n_after = row_count_a[..., :, None] + torch.cumsum(is_new_ro, dim=-1,
+                                                                   dtype=torch.int32)
                 reply_p = broadcast_reply_prob(n_after)
                 bern = bernoulli_matrix(key_bern, reply_p, (n, n), det)
                 reply = is_new_ro & bern  # [r, o]
@@ -524,91 +623,97 @@ def make_tick_fn(
                     if cfg.max_share_peers:
                         cap = cfg.max_share_peers
                         base_c = member_a & (
-                            torch.cumsum(member_a, dim=1, dtype=torch.int32) <= cap)
-                        clen = row_count_a.clamp(max=cap)[:, None] + torch.cumsum(
-                            Jm & ~base_c, dim=1, dtype=torch.int32)
+                            torch.cumsum(member_a, dim=-1, dtype=torch.int32) <= cap)
+                        clen = row_count_a.clamp(max=cap)[..., :, None] + torch.cumsum(
+                            Jm & ~base_c, dim=-1, dtype=torch.int32)
                         rec_cnt = torch.where(n_after <= cap, n_after, clen)
-                    join_records = torch.where(reply, rec_cnt, 0).sum(dtype=torch.int64)
+                    join_records = msum(torch.where(reply, rec_cnt, 0), torch.int64)
                 if bool(reply_del.any()):
                     share_base = member_a
                     if cfg.max_share_peers and n > cfg.max_share_peers:
                         # D5: cap to the lowest-index members of the map.
                         if base_c is None:
                             within_cap = (
-                                torch.cumsum(member_a, dim=1, dtype=torch.int32)
+                                torch.cumsum(member_a, dim=-1, dtype=torch.int32)
                                 <= cfg.max_share_peers
                             )
                             base_c = member_a & within_cap
                         share_base = base_c
-                    term1 = _bool_matmul(reply_del.T, share_base)  # [o, j]
-                    term2 = _bool_matmul(reply_del.T, Jm)
+                    reply_t = reply_del.transpose(-1, -2)
+                    term1 = _bool_matmul(reply_t, share_base)  # [o, j]
+                    term2 = _bool_matmul(reply_t, Jm)
                     tri = idx[None, :] <= idx[:, None]  # j <= o
                     gossip = term1 | (term2 & tri)
 
             # ============= Call 1: Pings + PingRequests =====================
-            ok_ping = has_ping & ok_edge(idx, ping_tgt)
-            ok_man = (man_tgt >= 0) & ok_edge(idx, man_tgt)
-            del_pr = proxies_valid & ok_edge(idx[:, None], proxies)  # [N, k]
+            ok_ping = has_ping & ok_edge(rows, ping_tgt)
+            ok_man = (man_tgt >= 0) & ok_edge(rows, man_tgt)
+            del_pr = proxies_valid & ok_edge(rows[..., None], proxies)  # [.., N, k]
             mark1 = _col_mark(idx, ping_tgt, ok_ping) | _col_mark(idx, man_tgt, ok_man)
             if escalating:
                 for kk in range(proxies.shape[-1]):
-                    mark1 = mark1 | _col_mark(idx, proxies[:, kk], del_pr[:, kk])
+                    mark1 = mark1 | _col_mark(idx, proxies[..., kk], del_pr[..., kk])
             fp0, n0 = fp_count(S_, idv_)
             S_, T_, lat_, idv_, dfp1, dn1 = apply_marks_delta(S_, T_, lat_, idv_, mark1)
             fp1, n1 = _add32(fp0, dfp1), n0 + dn1
 
-            del_ack = ok_ping & ok_edge(ping_tgt, idx)  # tgt -> pinger
-            del_ack_man = ok_man & ok_edge(man_tgt, idx)
-            del_pping = del_pr & ok_edge(proxies, jstar[:, None])  # proxy -> suspect
+            del_ack = ok_ping & ok_edge(ping_tgt, rows)  # tgt -> pinger
+            del_ack_man = ok_man & ok_edge(man_tgt, rows)
+            del_pping = del_pr & ok_edge(proxies, jstar[..., None])  # proxy -> suspect
 
             # ============= Call 2: Acks, proxy Pings, join responses ========
             mark2 = _row_mark(idx, ping_tgt, del_ack) | _row_mark(idx, man_tgt, del_ack_man)
-            if reply_del is not None:
-                mark2 = mark2 | reply_del.T.contiguous()  # joiner marks join-responder
+            if reply_del is not None:  # joiner marks join-responder
+                mark2 = mark2 | reply_del.transpose(-1, -2).contiguous()
             if escalating:  # suspect marks proxy
-                mark2 = _scatter_or(mark2, jstar[:, None], proxies, del_pping)
+                mark2 = _scatter_or(mark2, jstar[..., None], proxies, del_pping)
             S_, T_, lat_, idv_, dfp2, dn2 = apply_marks_delta(S_, T_, lat_, idv_, mark2)
 
             if gossip is not None:  # gossip-learned peers, back-dated (Q6)
                 gossip_new = gossip & ~(S_ > 0)
                 S_ = torch.where(gossip_new, KNOWN, S_)
-                T_ = torch.where(gossip_new, t - gossip_backdate, T_)
+                T_ = torch.where(gossip_new, (tp - gossip_backdate).to(T_.dtype), T_)
                 if has_idv:
                     idv_ = torch.where(gossip_new, id_row, idv_)
 
+            no_fp = torch.zeros((*batch, n), dtype=torch.int32, device=dev)
             if escalating:
                 fp2, n2 = fp_count(S_, idv_)
+                fp2, n2 = select(esc_m, fp2, no_fp), select(esc_m, n2, no_fp)
             else:
-                fp2 = torch.zeros((n,), dtype=torch.int32, device=dev)
-                n2 = torch.zeros((n,), dtype=torch.int32, device=dev)
+                fp2 = n2 = no_fp
 
-            del_pack = del_pping & ok_edge(jstar[:, None], proxies)  # [N, k]
-            pc = proxies.clamp(min=0).long()
-            pop_hit = ((ping_tgt[pc] == jstar[:, None]) & del_ack[pc]) | (
-                (man_tgt[pc] == jstar[:, None]) & del_ack_man[pc]
+            del_pack = del_pping & ok_edge(jstar[..., None], proxies)  # [.., N, k]
+            pop_hit = ((_take_vec(ping_tgt, proxies) == jstar[..., None])
+                       & _take_vec(del_ack, proxies)) | (
+                (_take_vec(man_tgt, proxies) == jstar[..., None])
+                & _take_vec(del_ack_man, proxies)
             )
             fwd_c = del_pr & pop_hit  # proxy forwards its call-2 ack payload (fp1)
-            del_fwd_c = fwd_c & ok_edge(proxies, idx[:, None])
+            del_fwd_c = fwd_c & ok_edge(proxies, rows[..., None])
             fwd = del_pack & ~pop_hit
-            del_fwd = fwd & ok_edge(proxies, idx[:, None])
+            del_fwd = fwd & ok_edge(proxies, rows[..., None])
 
             # ======== Calls 3 + 4: escalation-only delivery waves ===========
             if escalating:
-                no_marks = torch.zeros((n, n), dtype=torch.bool, device=dev)
-                mark3 = _scatter_or(no_marks, proxies, jstar[:, None], del_pack)
+                no_marks = torch.zeros((*batch, n, n), dtype=torch.bool, device=dev)
+                mark3 = _scatter_or(no_marks, proxies, jstar[..., None], del_pack)
                 mark3 = _scatter_or(mark3, idx[:, None], proxies, del_fwd_c)
                 S_, T_, lat_, idv_ = apply_marks(S_, T_, lat_, idv_, mark3)
                 mark4 = _scatter_or(no_marks, idx[:, None], proxies, del_fwd)
                 S_, T_, lat_, idv_ = apply_marks(S_, T_, lat_, idv_, mark4)
                 if not cfg.faithful_indirect_ack:
                     cleared = (del_fwd | del_fwd_c).any(dim=-1)
-                    clr_cell = cleared[:, None] & jstar_cell & (S_ > 0)
+                    clr_cell = cleared[..., :, None] & jstar_cell & (S_ > 0)
                     S_ = torch.where(clr_cell, KNOWN, S_)
-                    T_ = torch.where(clr_cell, t, T_)
+                    T_ = torch.where(clr_cell, tT, T_)
 
             # ============= G. Anti-entropy ==================================
             if joining or escalating:
                 fp_g, n_g = fp_count(S_, idv_)
+                recount = join_b.any(dim=-1) | esc_m
+                fp_g = select(recount, fp_g, _add32(fp1, dfp2))
+                n_g = select(recount, n_g, n1 + dn2)
             else:
                 fp_g, n_g = _add32(fp1, dfp2), n1 + dn2
 
@@ -617,21 +722,23 @@ def make_tick_fn(
             )
             # Phase 2 (call-3 acks) and phase 3 (call-4 forwarded acks).
             base2, base3 = 2 * n, 3 * n
-            jc = jstar.clamp(min=0).long()
-            x_fp2, x_n2 = fp2[jc], n2[jc]
-            m_px = del_pack & (x_fp2[:, None] != fp_g[pc]) & (n_g[pc] <= x_n2[:, None])
-            prio_proxy = torch.full((n,), INF, dtype=torch.int32, device=dev).scatter_reduce(
-                0, pc.reshape(-1),
-                torch.where(m_px, base2 + jstar[:, None], INF).reshape(-1),
+            x_fp2, x_n2 = _take_vec(fp2, jstar), _take_vec(n2, jstar)
+            m_px = del_pack & (x_fp2[..., None] != _take_vec(fp_g, proxies)) & (
+                _take_vec(n_g, proxies) <= x_n2[..., None])
+            prio_proxy = torch.full((*batch, n), INF, dtype=torch.int32, device=dev).scatter_reduce(
+                -1, proxies.clamp(min=0).long().reshape(*batch, -1),
+                torch.where(m_px, base2 + jstar[..., None], INF).reshape(*batch, -1),
                 reduce="amin", include_self=True,
             )
             peer_proxy = prio_proxy - base2
-            x_fp1, x_n1 = fp1[jc], n1[jc]
-            m_cf = del_fwd_c & (x_fp1[:, None] != fp_g[:, None]) & (n_g[:, None] <= x_n1[:, None])
+            x_fp1, x_n1 = _take_vec(fp1, jstar), _take_vec(n1, jstar)
+            m_cf = del_fwd_c & (x_fp1[..., None] != fp_g[..., None]) & (
+                n_g[..., None] <= x_n1[..., None])
             prio_coinc = torch.where(m_cf, base2 + proxies, INF).amin(dim=-1)
             prio2 = torch.minimum(prio_proxy, prio_coinc)
             peer2 = torch.where(prio_proxy <= prio_coinc, peer_proxy, jstar)
-            m_f = del_fwd & (x_fp2[:, None] != fp_g[:, None]) & (n_g[:, None] <= x_n2[:, None])
+            m_f = del_fwd & (x_fp2[..., None] != fp_g[..., None]) & (
+                n_g[..., None] <= x_n2[..., None])
             prio3 = torch.where(m_f, base3 + proxies, INF).amin(dim=-1)
             peer3 = jstar
 
@@ -642,19 +749,19 @@ def make_tick_fn(
             ).to(torch.int32)
             has_req = (best != INF) & alive
             partner = torch.where(has_req, partner, -1)
-            del_kpr = has_req & ok_edge(idx, partner)
-            del_rep = del_kpr & ok_edge(partner, idx)  # partner -> requester
+            del_kpr = has_req & ok_edge(rows, partner)
+            del_rep = del_kpr & ok_edge(partner, rows)  # partner -> requester
 
             S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
             )
             msgs = sum(
-                x.sum(dtype=torch.int64)
+                msum(x, torch.int64)
                 for x in (ok_ping, ok_man, del_pr, del_ack, del_ack_man, del_pping,
                           del_pack, del_fwd_c, del_fwd, del_kpr, del_rep)
             )
             if reply_del is not None:
-                msgs = msgs + reply_del.sum(dtype=torch.int64)
+                msgs = msgs + msum(reply_del, torch.int64)
             counters = None
             if telemetry:
                 counters = ProtocolCounters(
@@ -663,11 +770,11 @@ def make_tick_fn(
                     + _i32(fwd_c),
                     ping_reqs_sent=_i32(proxies_valid),
                     suspicions_raised=_i32(escalate),
-                    suspicions_refuted=zero32,  # filled by _finish
+                    suspicions_refuted=zero_b,  # filled by _finish
                     deaths_declared=deaths,
-                    joins_disseminated=_i32(Jm) if joining else zero32,
+                    joins_disseminated=_i32(Jm) if joining else zero_b,
                     gossip_bytes=_gossip_bytes(ae[0] + join_records),
-                    armed_timers=zero32,  # filled by _finish
+                    armed_timers=zero_b,  # filled by _finish
                 )
             return _finish(
                 S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
@@ -682,16 +789,16 @@ def make_tick_fn(
             both waves' exact (fp, count) deltas compose from the ORIGINAL
             (S, T) in one update."""
             S_, T_, lat_, idv_ = S, T, lat, idv
-            elig = alive[:, None] & (S_ == KNOWN) & ~eye
+            elig = alive[..., :, None] & (S_ == KNOWN) & ~eye
             ping_tgt = choose_one_of_oldest_k(
                 T_, elig, cfg.num_candidate_target_peers, key_ping, det,
                 method=cfg.oldest_k_method,
             )
             has_ping = ping_tgt >= 0
-            ok_ping = has_ping & ok_edge(idx, ping_tgt)
-            ok_man = (man_tgt >= 0) & ok_edge(idx, man_tgt)
-            del_ack = ok_ping & ok_edge(ping_tgt, idx)
-            del_ack_man = ok_man & ok_edge(man_tgt, idx)
+            ok_ping = has_ping & ok_edge(rows, ping_tgt)
+            ok_man = (man_tgt >= 0) & ok_edge(rows, man_tgt)
+            del_ack = ok_ping & ok_edge(ping_tgt, rows)
+            del_ack_man = ok_man & ok_edge(man_tgt, rows)
 
             tgt_cell = _row_mark(idx, ping_tgt, has_ping)
             mark1 = _col_mark(idx, ping_tgt, ok_ping) | _col_mark(idx, man_tgt, ok_man)
@@ -719,19 +826,19 @@ def make_tick_fn(
                 # the post-A3 state was waiting, wave 2 where the post-wave-1
                 # state still was.
                 S_a3 = torch.where(tgt_cell, WAITING_FOR_PING, S_)
-                T_a3 = torch.where(tgt_cell, t, T_)
+                T_a3 = torch.where(tgt_cell, tT, T_)
                 waiting1 = (S_a3 == WAITING_FOR_PING) | (S_a3 == WAITING_FOR_INDIRECT_PING)
-                sample1 = (t - T_a3.to(torch.int32)).to(torch.float32)
+                sample1 = (tp - T_a3.to(torch.int32)).to(torch.float32)
                 upd1 = torch.where(torch.isnan(lat_), sample1, 0.8 * sample1 + 0.2 * lat_)
                 lat1 = torch.where(mark1 & waiting1, upd1, lat_)
                 S_1 = torch.where(mark1, KNOWN, S_a3)
-                T_1 = torch.where(mark1, t, T_a3)
+                T_1 = torch.where(mark1, tT, T_a3)
                 waiting2 = (S_1 == WAITING_FOR_PING) | (S_1 == WAITING_FOR_INDIRECT_PING)
-                sample2 = (t - T_1.to(torch.int32)).to(torch.float32)
+                sample2 = (tp - T_1.to(torch.int32)).to(torch.float32)
                 upd2 = torch.where(torch.isnan(lat1), sample2, 0.8 * sample2 + 0.2 * lat1)
                 lat_ = torch.where(mark2 & waiting2, upd2, lat1)
             S_ = torch.where(mark_k, KNOWN, torch.where(tgt_cell, WAITING_FOR_PING, S_))
-            T_ = torch.where(mark_k | tgt_cell, t, T_)
+            T_ = torch.where(mark_k | tgt_cell, tT, T_)
             fp1, n1 = _add32(fp0, dfp1), n0 + dn1
             fp_g, n_g = _add32(fp1, dfp2), n1 + dn2
 
@@ -743,14 +850,14 @@ def make_tick_fn(
             partner = torch.where(best == prio0, peer0, peer1).to(torch.int32)
             has_req = (best != INF) & alive
             partner = torch.where(has_req, partner, -1)
-            del_kpr = has_req & ok_edge(idx, partner)
-            del_rep = del_kpr & ok_edge(partner, idx)
+            del_kpr = has_req & ok_edge(rows, partner)
+            del_rep = del_kpr & ok_edge(partner, rows)
 
             S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
             )
             msgs = sum(
-                x.sum(dtype=torch.int64)
+                msum(x, torch.int64)
                 for x in (ok_ping, ok_man, del_ack, del_ack_man, del_kpr, del_rep)
             )
             counters = None
@@ -760,13 +867,13 @@ def make_tick_fn(
                 counters = ProtocolCounters(
                     pings_sent=_i32(has_ping) + _i32(man_tgt >= 0),
                     acks_sent=_i32(ok_ping) + _i32(ok_man),
-                    ping_reqs_sent=zero32,
-                    suspicions_raised=zero32,
-                    suspicions_refuted=zero32,  # filled by _finish
-                    deaths_declared=zero32,
-                    joins_disseminated=zero32,
+                    ping_reqs_sent=zero_b,
+                    suspicions_raised=zero_b,
+                    suspicions_refuted=zero_b,  # filled by _finish
+                    deaths_declared=zero_b,
+                    joins_disseminated=zero_b,
                     gossip_bytes=_gossip_bytes(ae[0]),
-                    armed_timers=zero32,  # filled by _finish
+                    armed_timers=zero_b,  # filled by _finish
                 )
             return _finish(
                 S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
@@ -774,6 +881,9 @@ def make_tick_fn(
             )
 
         # ---- dispatch ------------------------------------------------------
+        # On an ensemble the gate is whether ANY member needs the full
+        # program; the full program is exact for every member (the dispatch
+        # contract), so the fused one runs only when no member needs more.
         if program == "fused":
             return _fast()
         if program == "full" or not cfg.fast_path:

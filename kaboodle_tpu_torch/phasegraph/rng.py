@@ -7,6 +7,11 @@ Every draw of a tick is keyed by a pure function of ``(key, tick, stream)``:
 so the carried key is a constant of the run and any tick's randomness can
 be recomputed from the state alone. The ``STREAM_*`` ids are those of the
 JAX package; renumbering one changes every draw of every run.
+
+The dense tick derives its keys on the device from the state's ``key`` and
+``tick`` tensors (:func:`state_draw_keys`; ``[E]`` words for an ensemble),
+the blocked tick on the host from Python ints: both forms give the same
+words.
 """
 
 from __future__ import annotations
@@ -45,11 +50,26 @@ def tick_stream_key(key: threefry.Key, tick: int, stream: int) -> threefry.Key:
     return threefry.fold_in(threefry.fold_in(threefry.prng_key(seed), tick), stream)
 
 
-def tick_draw_keys(key: threefry.Key, tick: int):
-    """The dense tick's four draw keys ``(proxy, ping, bern, drop)``."""
-    return (
-        tick_stream_key(key, tick, STREAM_TICK_PROXY),
-        tick_stream_key(key, tick, STREAM_TICK_PING),
-        tick_stream_key(key, tick, STREAM_TICK_BERN),
-        tick_stream_key(key, tick, STREAM_TICK_DROP),
-    )
+_TICK_STREAMS = (STREAM_TICK_PROXY, STREAM_TICK_PING, STREAM_TICK_BERN, STREAM_TICK_DROP)
+
+
+def tick_draw_keys(key: threefry.Key, tick):
+    """The dense tick's four draw keys ``(proxy, ping, bern, drop)``.
+
+    With int words and an int ``tick``, four host keys; with tensor words
+    (shape ``[]`` or ``[E]``) and a tick tensor of the same shape, four
+    tensor keys of that shape, the four streams folded in one batched call."""
+    if not isinstance(tick, torch.Tensor):
+        return tuple(tick_stream_key(key, tick, s) for s in _TICK_STREAMS)
+    seed = (key[0] ^ key[1]) & threefry.M32
+    k0, k1 = threefry.fold_in(threefry.prng_key(seed), tick)
+    streams = torch.tensor(_TICK_STREAMS, dtype=torch.int64, device=tick.device)
+    w0, w1 = threefry.fold_in((k0[..., None], k1[..., None]), streams)
+    return tuple((w0[..., i], w1[..., i]) for i in range(len(_TICK_STREAMS)))
+
+
+def state_draw_keys(key: torch.Tensor, tick: torch.Tensor):
+    """:func:`tick_draw_keys` of a state's carried ``key`` (int32 bits,
+    ``[..., 2]``) and ``tick`` (``[...]``), on their device: no host fetch."""
+    words = threefry._u32(key)
+    return tick_draw_keys((words[..., 0], words[..., 1]), tick)

@@ -8,7 +8,9 @@ The dtypes are the JAX package's, except that every uint32 field
 (``identity``, ``id_view``, ``kpr_fp``, ``key``, the fingerprint metrics)
 is an int32 tensor holding the same 32 bits (see ops/hashing.py).
 ``state_from_numpy`` / ``state_to_numpy`` and ``inputs_from_numpy`` carry
-states and inputs across from and back to the JAX package's layout.
+states and inputs across from and back to the JAX package's layout;
+``fleet_from_numpy`` / ``fleet_to_numpy`` do the same for an ensemble
+(``fleet.core.FleetState``: every leaf with a leading ``[E]`` axis).
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class TickInputs:
     drop_ok: torch.Tensor | None = None  # bool [N, N]
 
     def at(self, t: int) -> "TickInputs":
-        """Tick ``t`` of stacked inputs."""
+        """Tick ``t`` of stacked inputs (``[T, ...]`` or an ensemble's ``[T, E, ...]``)."""
         return TickInputs(
             kill=self.kill[t], revive=self.revive[t], partition=self.partition[t],
             drop_rate=self.drop_rate[t], manual_target=self.manual_target[t],
@@ -203,6 +205,25 @@ def state_to_numpy(st: MeshState) -> dict:
         f.name: None if getattr(st, f.name) is None else _to_np(getattr(st, f.name), f.name)
         for f in dataclasses.fields(MeshState)
     }
+
+
+def fleet_from_numpy(fields: dict, device=None):
+    """A ``FleetState`` from the JAX package's fleet leaves taken through
+    ``np.asarray``: ``{"mesh": {field: [E, ...] array}, "drop_rate": [E]}``."""
+    from kaboodle_tpu_torch.fleet.core import FleetState
+
+    dev = resolve_device(device)
+    return FleetState(
+        mesh=state_from_numpy(fields["mesh"], device=dev),
+        drop_rate=torch.as_tensor(np.array(fields["drop_rate"], dtype=np.float32), device=dev),
+    )
+
+
+def fleet_to_numpy(fleet) -> dict:
+    """The JAX package's leaf layout of a ``FleetState`` (uint32 fields as
+    uint32): ``{"mesh": {field: array}, "drop_rate": array}``."""
+    return {"mesh": state_to_numpy(fleet.mesh),
+            "drop_rate": fleet.drop_rate.detach().cpu().numpy()}
 
 
 def inputs_from_numpy(fields: dict, device=None) -> TickInputs:

@@ -4,16 +4,18 @@
     python3 scripts/torch_tick_profile.py [--out PATH] [--cells NAME,...]
 
 Runs the main-path cells of ``chip_smoke.py`` (its ``boot_case``,
-``churn_case``, ``chunked_boot_case`` and ``chunked_faulty_case``, imported
-from there) -- the N=16,384 lean broadcast boot (``run_until_converged``),
-the N=8,192 BASELINE config-3 churn (64 ticks, ``simulate``), both with
-all three kernel flags on, and the blocked tick at N=65,536: the config-4
-boot and the first 3 ticks of config 5 (the Join avalanche under drop, a
-drop tick in the partition, the first healed tick), random mode -- twice
-each: once plain for the wall time (ending in
+``churn_case``, ``chunked_boot_case``, ``chunked_faulty_case`` and
+``fleet_args``, imported from there) -- the N=16,384 lean broadcast boot
+(``run_until_converged``), the N=8,192 BASELINE config-3 churn (64 ticks,
+``simulate``), both with all three kernel flags on, the blocked tick at
+N=65,536: the config-4 boot and the first 3 ticks of config 5 (the Join
+avalanche under drop, a drop tick in the partition, the first healed
+tick), and the fleet's drop-rate sweep (``fleet/bench.py::sweep``, E = 256
+meshes of N = 1,024, ``drop_rate=0:0.3:16``, at most 64 ticks), random
+mode -- twice each: once plain for the wall time (ending in
 ``torch.cuda.synchronize()``), once under ``torch.profiler`` for the device
 time by kernel. The dense cells are warmed up by a third run first; the
-blocked cells, tens of seconds each, are not. Prints one JSON line per
+blocked and fleet cells, tens of seconds each, are not. Prints one JSON line per
 cell: wall seconds, device kernel time, the device's busy share (device
 time over the unprofiled wall) and the share of the four hand kernels;
 ``--out`` writes the full report, with the top device kernels by time,
@@ -31,7 +33,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 HAND_KERNELS = ("fused_fp_kernel", "fused_suspicion_kernel", "fused_oldest_k_kernel")
 CELLS = ("boot_n16384_lean", "churn_config3_n8192", "chunked_boot_config4_n65536",
-         "chunked_config5_n65536_3ticks")
+         "chunked_config5_n65536_3ticks", "fleet_sweep_e256_n1024")
 
 
 def _device_us(evt) -> float:
@@ -79,6 +81,12 @@ def profile_cell(name: str, make, run, warm: bool = True) -> dict:
     }
 
 
+def _fleet_sweep(args):
+    from kaboodle_tpu_torch.fleet.bench import sweep
+
+    return sweep(args)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report (JSON) here")
@@ -101,6 +109,8 @@ def main() -> int:
         "churn_config3_n8192": lambda: chip_smoke.churn_case()[1:],
         "chunked_boot_config4_n65536": lambda: chip_smoke.chunked_boot_case() + (False,),
         "chunked_config5_n65536_3ticks": lambda: chip_smoke.chunked_faulty_case(3)[1:] + (False,),
+        "fleet_sweep_e256_n1024": lambda: (
+            lambda: chip_smoke.fleet_args("--sweep", chip_smoke.FLEET_SWEEP), _fleet_sweep, False),
     }
     cells = []
     for name in args.cells.split(","):

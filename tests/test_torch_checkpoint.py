@@ -185,3 +185,80 @@ def test_guards_raise_checkpoint_error(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             checkpoint.load(path)
+
+
+# ---------------------------------------------------------------- fleet archives
+
+
+def _jax_fleet(lean: bool):
+    from kaboodle_tpu import fleet as jfleet
+
+    kw = dict(track_latency=not lean, instant_identity=lean,
+              timer_dtype=jnp.int16 if lean else jnp.int32)
+    fl = jfleet.init_fleet(12, 3, seeds=jnp.asarray([4, 1, 7]),
+                           drop_rates=jnp.asarray([0.0, 0.2, 0.1]), **kw)
+    fl, _ = jfleet.simulate_fleet(fl, jfleet.fleet_idle_inputs(12, 3, ticks=3),
+                                  JaxSwimConfig(), faulty=False)
+    return fl
+
+
+@pytest.mark.parametrize("lean", [False, True])
+@pytest.mark.parametrize("generation", [None, [3, 0, 9]])
+def test_fleet_archives_both_ways(tmp_path, lean, generation):
+    """``save_fleet`` / ``load_fleet`` on the JAX fleet schema: a JAX archive
+    loads in the port and a port archive (atomic) loads in JAX, every
+    stacked leaf, the drop rates and the lane generations equal; the two
+    archives hold the same entries, names and dtypes."""
+    jfl = _jax_fleet(lean)
+    want = {"mesh": _leaves(jfl.mesh), "drop_rate": np.asarray(jfl.drop_rate)}
+    jpath, tpath = tmp_path / "j.npz", tmp_path / "t.npz"
+    jgen = None if generation is None else jnp.asarray(generation, dtype=jnp.int32)
+    jckpt.save_fleet(jpath, jfl, generation=jgen)
+    tfl, tgen = checkpoint.load_fleet(jpath, device=CPU)
+    got = tstate.fleet_to_numpy(tfl)
+    _assert_same(want["mesh"], got["mesh"], "jax -> port")
+    np.testing.assert_array_equal(got["drop_rate"], want["drop_rate"])
+    assert (tgen is None) == (generation is None)
+    if generation is not None:
+        assert tgen.dtype == torch.int32 and tgen.tolist() == generation
+
+    checkpoint.save_fleet(tpath, tfl, generation=tgen, atomic=True)
+    assert not (tmp_path / "t.npz.tmp").exists()
+    back, bgen = jckpt.load_fleet(tpath)
+    _assert_same(got["mesh"], _leaves(back.mesh), "port -> jax")
+    np.testing.assert_array_equal(np.asarray(back.drop_rate), want["drop_rate"])
+    assert (bgen is None) == (generation is None)
+    if generation is not None:
+        np.testing.assert_array_equal(np.asarray(bgen), generation)
+    with np.load(tpath) as t, np.load(jpath) as j:
+        assert sorted(t.files) == sorted(j.files)
+        for name in j.files:
+            assert t[name].dtype == j[name].dtype and t[name].shape == j[name].shape, name
+            np.testing.assert_array_equal(t[name], j[name], err_msg=name)
+
+
+def test_fleet_archive_guards(tmp_path):
+    """A single-mesh archive is no fleet archive (and the other way round),
+    and a fleet archive missing its drop rates or a field is refused, in
+    both packages."""
+    from kaboodle_tpu_torch.fleet import init_fleet
+
+    single = tmp_path / "single.npz"
+    checkpoint.save(single, tstate.init_state(8, seed=1, device=CPU))
+    fleet = tmp_path / "fleet.npz"
+    checkpoint.save_fleet(fleet, init_fleet(8, 2, device=CPU))
+    with pytest.raises(CheckpointError, match="not a fleet checkpoint"):
+        checkpoint.load_fleet(single, device=CPU)
+    with pytest.raises(jerrors.CheckpointError, match="not a fleet checkpoint"):
+        jckpt.load_fleet(single)
+    _raises_in_both(fleet)
+    with np.load(fleet) as z:
+        entries = {k: z[k] for k in z.files}
+    for drop in ("drop_rate", "mesh.state"):
+        broken = tmp_path / f"no_{drop}.npz"
+        np.savez(broken, **{k: v for k, v in entries.items() if k != drop})
+        with pytest.raises(CheckpointError):
+            checkpoint.load_fleet(broken, device=CPU)
+        with pytest.raises(jerrors.CheckpointError):
+            jckpt.load_fleet(broken)
+    assert checkpoint.load_fleet(fleet, device=CPU)[0].ensemble == 2

@@ -7,6 +7,8 @@ run there without the repo's conftest (which imports JAX):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -227,3 +229,48 @@ def test_facade_on_card_equals_cpu(card):
                 np.testing.assert_allclose(gs[k], w, rtol=1e-5)
             elif w is not None:
                 np.testing.assert_array_equal(gs[k], w, err_msg=f"tick {t} {k}")
+
+
+def test_fleet_on_card_equals_cpu(card):
+    """The fleet tick on the card against the CPU: E = 4 meshes of N = 64,
+    random mode, faulty, per-member drop rates and a stacked churn schedule
+    (the broadcast boot's gossip union multiplies per member), in the
+    telemetry-off and telemetry-on builds: every leaf, metric, counter and
+    digest equal per tick."""
+    from kaboodle_tpu_torch.fleet import (
+        init_fleet,
+        scan_axis_first,
+        simulate_fleet,
+        stack_member_inputs,
+    )
+    from kaboodle_tpu_torch.sim import Scenario
+    from kaboodle_tpu_torch.sim.state import fleet_to_numpy
+
+    n, e, ticks = 64, 4, 10
+    rates = [0.0, 0.1, 0.2, 0.3]
+    scenarios = [Scenario(n, ticks).kill_at(2, [m + 1, m + 9]).revive_at(6, [m + 1])
+                 .partition_at(3, np.arange(n) % 2, until=5) for m in range(e)]
+    for telemetry in (False, True):
+        res = {}
+        for d in ("cuda", "cpu"):
+            inputs = scan_axis_first(stack_member_inputs([sc.build(d) for sc in scenarios]))
+            inputs.drop_rate = torch.tensor(rates, device=d).expand(ticks, e)
+            fleet = init_fleet(n, e, drop_rates=rates, device=d)
+            out, m = simulate_fleet(fleet, inputs, SwimConfig(), faulty=True, telemetry=telemetry)
+            res[d] = (fleet_to_numpy(out)["mesh"], m)
+        for k, w in res["cpu"][0].items():
+            g = res["cuda"][0][k]
+            if k == "latency":
+                np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+                np.testing.assert_allclose(g, w, rtol=1e-5)
+            elif w is not None:
+                np.testing.assert_array_equal(g, w, err_msg=k)
+        gm, wm = res["cuda"][1], res["cpu"][1]
+        if telemetry:
+            assert torch.equal(gm.fp.cpu(), wm.fp)
+            for f in dataclasses.fields(wm.counters):
+                assert torch.equal(getattr(gm.counters, f.name).cpu(),
+                                   getattr(wm.counters, f.name)), f.name
+            gm, wm = gm.metrics, wm.metrics
+        for k, w in metrics_to_numpy(wm).items():
+            np.testing.assert_array_equal(metrics_to_numpy(gm)[k], w, err_msg=k)

@@ -381,12 +381,16 @@ def test_package_imports_without_jax_or_reference_package():
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kaboodle_tpu")
                and sys.modules[m] is not None]
         assert not bad, bad
+        fleet = {"kaboodle_tpu_torch.fleet", "kaboodle_tpu_torch.fleet.core",
+                 "kaboodle_tpu_torch.fleet.stats", "kaboodle_tpu_torch.fleet.bench",
+                 "kaboodle_tpu_torch.phasegraph.derive"}
+        assert fleet <= set(names), fleet - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parent.parent))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28
+    assert int(out.stdout.strip()) >= 35
 
 
 def test_entry_points_default_to_the_card():
