@@ -5,14 +5,14 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs fifteen phases, each printing one JSON line; any failure raises and the
+runs eighteen phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
                registers and spills of every kernel (``-Xptxas -v``).
 2. kernels  -- each kernel against its plain PyTorch version on the card,
-               bit-exact, at the path's widths (N = 16,384 and 8,192) and
-               others (4,112, 1,000), int16 and int32 timers, k = 1, 5, 9,
+               bit-exact, at the path's widths (N = 16,384, 8,192 and the
+               warp drain's 1,024) and others (4,112, 1,000), int16 and int32 timers, k = 1, 5, 9,
                40 and k above the eligible count, negative timers, timers at
                the dtype max, dead rows. Each shape the main path launches a
                kernel at is timed with CUDA events over repeated launches,
@@ -86,12 +86,39 @@ script exits non-zero without the result line:
                random mode, faulty, per-member drop rates and churn
                schedules) equals itself on the CPU, telemetry off and on.
 
+16. warp_window -- the JAX TPU lane's calm-window measurement at full width
+               (bench.py ``_bench_warp_drain_window``): N = 16,384, lean,
+               int16 timers, all kernel flags on, ``ping_timeout_ticks`` =
+               1,024; a mid-drain state (8 victims armed ``WaitingForPing``,
+               victim 0 gone from half the rows) that classes ``hybrid``; 256
+               dense fault-free ticks, the hybrid leap in one 256 chunk, and
+               a span-memo replay, all three final states bit-equal.
+17. warp_drain -- ``BENCH_warp3.json``'s end-to-end churn-recovery drain (bench.py
+               ``_bench_warp_churn_recovery``) at N = 1,024 and 8,192 ticks:
+               full state, int32 timers, ``ping_timeout_ticks`` = 1,365,
+               kernel flags on; the churn half dense once, then the calm half
+               dense, through ``simulate_warped`` with a ledger, a memo
+               banking pass and a memo replay pass (all ``+memo``, no tick or
+               leap run), all bit-equal, the warp and replay runs with the
+               same dense ticks; then ``warp_mode="distributional"`` held to
+               the dense run's alive planes, convergence and 8-tick steady
+               message mean.
+18. warp_fleet -- ``run_fleet_warped`` over E = 16 members of N = 1,024
+               (converged, mid-drain and mid-boot, ``ping_timeout_ticks`` =
+               512) for 512 ticks: members 0, 6 and 11 bit-equal to
+               standalone ``run_warped`` on the card, the ledger with fleet
+               leap rounds; then an E = 8, N = 128 warped fleet on the card
+               equal to the same fleet on the CPU.
+
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the facade at capacity 8,192, the checkpoint's
-resumed ticks, the two blocked runs and the two fleet runs) and read just
-after: each kernel of the dense path must have launched; the blocked tick
-and the fleet run no kernel (as in the JAX package, whose fleet refuses
-the Pallas flags), so their runs count 0 and none is required of them. The last lines are the card's name and power limit, the
+resumed ticks, the two blocked runs, the two fleet runs and the warp runs)
+and read just after: each kernel of the dense path must have launched; the
+blocked tick, the fleet and the leaps run no kernel (as in the JAX
+package, whose fleet refuses the Pallas flags and whose leap has no Pallas
+call), so their runs count 0 and none is required of them; every one-mesh
+warp run with a dense tick in it must launch the dense path's kernels. The
+last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` summary (per kernel the numbers of the shape it is
 launched at most, every timed shape under ``shapes`` and the launches per
 run under ``launches_by_run``), and ``{"ok": true, "device": {...}}``.
@@ -331,6 +358,10 @@ def phase_kernels() -> dict:
              for n in (16384, 8192, 1000) for dt in (i16, i32) for k in (1, 5, 9)]
     # k above one 32-wide round; k above the eligible count
     plan += [("fused_oldest_k", 4112, i16, 40, None), ("fused_oldest_k", 1000, i32, 1000, None)]
+    # The warp drain's dense stretches: N = 1,024, full state, int32 timers.
+    plan += [("fused_fp_idv", 1024, i32, 0, "warp_drain"),
+             ("fused_suspicion", 1024, i32, 0, "warp_drain")]
+    plan += [("fused_oldest_k", 1024, i32, k, "warp_drain" if k == 5 else None) for k in (1, 5, 9)]
     cases, rows = [], []
     for name, n, dt, k, timed in plan:
         state, timer, alive, idv = kernel_inputs(n, dt, gen)
@@ -373,6 +404,16 @@ def counts() -> dict:
     return dict(_cuda.launches)
 
 
+# The main-path runs that launch the kernels at each timed shape (a
+# ``cell`` of phase ``kernels``): the N = 16,384 lean int16 state, the
+# N = 8,192 full state and the N = 1,024 full state of the warp drain.
+SHAPE_RUNS = {
+    "boot": ("boot", "telemetry_boot", "warp_window_dense"),
+    "churn": ("churn", "telemetry_churn", "facade", "checkpoint_resume"),
+    "churn_final_state": ("churn", "telemetry_churn", "facade", "checkpoint_resume"),
+    "warp_drain": ("warp_drain_churn", "warp_drain_dense", "warp_drain_warp", "warp_drain_bank",
+                   "warp_drain_distributional"),
+}
 # The kernels each main-path run must launch: the boot's lean state hashes
 # a precomputed record vector (K2), every full state its identity views (K1).
 BOOT_KERNELS = ("fused_fp_hash", "fused_suspicion", "fused_oldest_k")
@@ -1358,6 +1399,366 @@ def phase_fleet_parity(boot_res, sweep_res, sweep_line) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- warp
+
+# The calm window of the JAX TPU lane (bench.py ``--warp``, ``wn2``): one
+# 256-tick hybrid span at N = 16,384.
+WINDOW_N = 16384
+WINDOW_K = 256
+# BENCH_warp3.json's drain: N = 1,024, 8,192 ticks (churn half, calm half).
+DRAIN_N = 1024
+DRAIN_TICKS = 8192
+WARP_FLEET_N = 1024
+WARP_FLEET_TICKS = 512
+# Members of the warped fleet: converged, mid-drain, mid-boot.
+WARP_FLEET_KINDS = ("converged",) * 6 + ("drain",) * 5 + ("boot",) * 5
+WARP_FLEET_CHECK = (0, 6, 11)
+# The kernels a dense stretch of each one-mesh warp run launches: the
+# window's lean state hashes a record vector (K2) in its anti-entropy
+# recounts, the drain's full state its identity views (K1), and its
+# escalation ticks take the full program (K4).
+WINDOW_KERNELS = ("fused_fp_hash", "fused_suspicion")
+DRAIN_KERNELS = CHURN_KERNELS
+
+
+def drain_victims(n: int) -> list[int]:
+    """bench.py's eight victims, spread over the index range."""
+    return [(i * n) // 9 + 1 for i in range(8)]
+
+
+def window_state(cfg, n: int = WINDOW_N, device="cuda"):
+    """bench.py's mid-drain window state: a converged lean int16 mesh, 8
+    victims killed, every survivor's cell for them armed ``WaitingForPing``
+    now, and victim 0 already gone from half the rows (fingerprints
+    disagree, so anti-entropy fires every tick)."""
+    import torch
+
+    from kaboodle_tpu_torch.sim import Scenario, init_state, make_tick_fn
+    from kaboodle_tpu_torch.spec import WAITING_FOR_PING
+
+    st = init_state(n, seed=1, ring_contacts=n - 1, announced=True, track_latency=False,
+                    instant_identity=True, timer_dtype=torch.int16, device=device)
+    victims = drain_victims(n)
+    kill = Scenario(n, 1).kill_at(0, victims).build(device).at(0)
+    st, _ = make_tick_fn(cfg, faulty=True)(st, kill)
+    S, T, alive = st.state.clone(), st.timer.clone(), st.alive
+    for v in victims:  # dead rows stay as they are
+        S[alive, v] = WAITING_FOR_PING
+        T[alive, v] = int(st.tick)
+    S[alive & (torch.arange(n, device=device) >= n // 2), victims[0]] = 0
+    return dataclasses.replace(st, state=S, timer=T)
+
+
+def phase_warp_window() -> dict:
+    """256 dense ticks, the 256-tick hybrid leap and a memo replay from one
+    mid-drain state at N = 16,384: all three bit-equal."""
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sim import idle_inputs, make_tick_fn
+    from kaboodle_tpu_torch.warp.horizon import decode_signature, make_signature_fn
+    from kaboodle_tpu_torch.warp.runner import (
+        SpanMemo,
+        _digest_leaves,
+        _get_leap,
+        _host_leaves,
+        _memo_replay,
+        _memo_store,
+    )
+
+    n, k = WINDOW_N, WINDOW_K
+    cfg = dataclasses.replace(all_kernels_cfg(), ping_timeout_ticks=4 * k)
+    release_device_memory()
+    st = window_state(cfg, n)
+    cls = decode_signature(make_signature_fn(cfg)(st))
+    if cls.mode != "hybrid":
+        raise AssertionError(f"the window state classes {cls.describe()}, not hybrid")
+    tick, idle = make_tick_fn(cfg, faulty=False), idle_inputs(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    dense = st
+    for _ in range(k):
+        dense, _ = tick(dense, idle)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    dense_launches = counts()
+    dense_peak = torch.cuda.max_memory_allocated()
+    require_launches("warp_window dense arm", dense_launches, WINDOW_KERNELS)
+
+    leap = _get_leap(cfg, k, hybrid=True)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    walls = []
+    for _ in range(2):  # the first call pays the allocator's growth
+        t0 = time.perf_counter()
+        out_w = leap(st)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    leap_launches = counts()
+    leap_peak = torch.cuda.max_memory_allocated()
+
+    memo = SpanMemo(max_bytes=8 << 30)
+    entry = _host_leaves(st)
+    _memo_store(memo, ("window", cls.key, k, _digest_leaves(entry)), entry, out_w)
+    t0 = time.perf_counter()
+    entry2 = _host_leaves(st)  # a replay's whole cost: fetch, digest, lookup, XOR, copy back
+    hit = memo.get(("window", cls.key, k, _digest_leaves(entry2)), kind="window")
+    out_m = _memo_replay(st, entry2, hit[0])
+    torch.cuda.synchronize()
+    memo_wall = time.perf_counter() - t0
+    bad = {"leap": state_diff(dense, out_w), "memo": state_diff(dense, out_m)}
+    out = {"phase": "warp_window", "n": n, "ticks": k, "class": cls.describe(),
+           "dense_wall_s": dense_wall, "dense_ms_per_tick": 1e3 * dense_wall / k,
+           "leap_wall_s": walls[1], "leap_wall_s_first": walls[0],
+           "leap_ms_per_step": 1e3 * walls[1] / k, "memo_wall_s": memo_wall,
+           "dense_over_leap": dense_wall / walls[1], "dense_over_memo": dense_wall / memo_wall,
+           "max_memory_allocated_dense": dense_peak, "max_memory_allocated_leap": leap_peak,
+           "memo_bytes": memo.stats()["bytes"], "state_diff": bad,
+           "launches_dense": dense_launches, "launches_leap": leap_launches}
+    emit(out)
+    if bad["leap"] or bad["memo"]:
+        raise AssertionError(f"warp_window: leap or memo != dense: {bad}")
+    if any(leap_launches.values()):
+        raise AssertionError("the leap launched a hand kernel")
+    del st, dense, out_w, out_m
+    return out
+
+
+def warp_drain_case(n: int = DRAIN_N, ticks: int = DRAIN_TICKS, device="cuda"):
+    """BENCH_warp3.json's churn-recovery drain (bench.py
+    ``_bench_warp_churn_recovery``) as ``(cfg, state, churn_inputs,
+    calm_inputs)``: a converged full-state mesh, 8 staggered kills at the
+    tail of the churn half plus one early kill and revive, and a suspicion
+    timeout of a third of the calm half; all kernel flags on."""
+    from kaboodle_tpu_torch.sim import Scenario, init_state
+
+    churn_end = ticks // 2
+    cfg = dataclasses.replace(all_kernels_cfg(),
+                              ping_timeout_ticks=max(8, (ticks - churn_end) // 3))
+    st = init_state(n, seed=0, ring_contacts=n - 1, announced=True, device=device)
+    sc = Scenario(n, ticks)
+    victims = drain_victims(n)
+    for i, p in enumerate(victims):
+        sc.kill_at(max(1, churn_end - 16 + 2 * i), [p])
+    extra = victims[0] + 1 if victims[0] + 1 not in victims else victims[0] + 2
+    sc.kill_at(1, [extra]).revive_at(min(6, churn_end - 1), [extra])
+    inputs = sc.build(device)
+    churn = dataclasses.replace(inputs, **{f.name: getattr(inputs, f.name)[:churn_end]
+                                           for f in dataclasses.fields(inputs)
+                                           if getattr(inputs, f.name) is not None})
+    calm = dataclasses.replace(inputs, **{f.name: getattr(inputs, f.name)[churn_end:]
+                                          for f in dataclasses.fields(inputs)
+                                          if getattr(inputs, f.name) is not None})
+    return cfg, st, churn, calm
+
+
+def timed(run):
+    """``(result, wall seconds, launches)`` of ``run()``, counts reset before."""
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, counts()
+
+
+def steady_mean(state, cfg, ticks: int = 8) -> float:
+    """Mean messages delivered a tick over ``ticks`` idle faulty ticks."""
+    from kaboodle_tpu_torch.sim import idle_inputs, make_tick_fn
+
+    tick, idle = make_tick_fn(cfg, faulty=True), idle_inputs(state.n)
+    msgs = []
+    for _ in range(ticks):
+        state, m = tick(state, idle)
+        msgs.append(int(m.messages_delivered))
+    return sum(msgs) / len(msgs)
+
+
+def phase_warp_drain() -> dict:
+    """The drain's calm half four ways (dense, warped, memo banking, memo
+    replay), all bit-equal, then the distributional tier."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.sim import simulate
+    from kaboodle_tpu_torch.sim.runner import state_converged
+    from kaboodle_tpu_torch.warp.runner import SpanMemo, WarpLedger, leap_cache, simulate_warped
+
+    release_device_memory()
+    cfg, st, churn_in, calm_in = warp_drain_case(DRAIN_N, DRAIN_TICKS)
+    calm_ticks = int(calm_in.kill.shape[0])
+    torch.cuda.reset_peak_memory_stats()
+    (st_c, _), churn_wall, l_churn = timed(lambda: simulate(st, churn_in, cfg, faulty=True))
+    (out_d, _), dense_wall, l_dense = timed(lambda: simulate(st_c, calm_in, cfg, faulty=True))
+    ledger = WarpLedger()
+    cache_before = leap_cache.stats()
+    (out_w, dt_w, _), warp_wall, l_warp = timed(
+        lambda: simulate_warped(st_c, calm_in, cfg, faulty=True, ledger=ledger))
+    memo = SpanMemo(max_bytes=16 << 30, max_entries=65536)
+    (out_b, dt_b, _), bank_wall, l_bank = timed(
+        lambda: simulate_warped(st_c, calm_in, cfg, faulty=True, memo=memo))
+    mled = WarpLedger()
+    (out_m, dt_m, _), replay_wall, l_replay = timed(
+        lambda: simulate_warped(st_c, calm_in, cfg, faulty=True, memo=memo, ledger=mled))
+    peak = torch.cuda.max_memory_allocated()
+    dled = WarpLedger()
+    (out_x, dt_x, _), dist_wall, l_dist = timed(
+        lambda: simulate_warped(st_c, calm_in, cfg, faulty=True, ledger=dled,
+                                warp_mode="distributional"))
+    why_dense = ledger.blocked_histogram()
+    bad = {name: state_diff(out_d, o) for name, o in
+           (("warp", out_w), ("bank", out_b), ("replay", out_m))}
+    steady = {"dense": steady_mean(out_d, cfg), "distributional": steady_mean(out_x, cfg)}
+    out = {"phase": "warp_drain", "n": DRAIN_N, "ticks": DRAIN_TICKS, "calm_ticks": calm_ticks,
+           "ping_timeout_ticks": cfg.ping_timeout_ticks,
+           "churn_wall_s": churn_wall, "dense_wall_s": dense_wall,
+           "dense_ms_per_tick": 1e3 * dense_wall / calm_ticks, "warp_wall_s": warp_wall,
+           "bank_wall_s": bank_wall, "replay_wall_s": replay_wall,
+           "distributional_wall_s": dist_wall,
+           "dense_over_warp": dense_wall / warp_wall, "dense_over_replay": dense_wall / replay_wall,
+           "dense_ticks": int(dt_w.size), "leaped_ticks": calm_ticks - int(dt_w.size),
+           "dense_ticks_distributional": int(dt_x.size), "why_dense": why_dense,
+           "per_class": {str(k): v for k, v in ledger.per_class().items()},
+           "program_cache": leap_cache.stats(), "program_cache_before": cache_before,
+           "memo": memo.stats(), "max_memory_allocated": peak, "state_diff": bad,
+           "steady_msgs_mean": steady,
+           "launches": {"churn": l_churn, "dense": l_dense, "warp": l_warp, "bank": l_bank,
+                        "replay": l_replay, "distributional": l_dist}}
+    emit(out)
+    if any(bad.values()):
+        raise AssertionError(f"warp_drain: a warped calm half != the dense one: {bad}")
+    if not (np.array_equal(dt_w, dt_m) and np.array_equal(dt_w, dt_b)):
+        raise AssertionError("warp_drain: the memo runs' dense ticks differ from the warp run's")
+    if sum(v["ticks"] for v in why_dense.values()) != dt_w.size:
+        raise AssertionError("warp_drain: the why-dense histogram does not sum to the dense ticks")
+    if not (all(r["engine"].endswith("+memo") and r["dispatches"] == 0 for r in mled.spans)
+            and mled.spans and not mled.blocked):
+        raise AssertionError("warp_drain: the replay pass ran a tick or a leap")
+    if any(l_replay.values()):
+        raise AssertionError("warp_drain: the replay pass launched a kernel")
+    if memo.stats()["evictions"] or not memo.stats()["hits"]:
+        raise AssertionError(f"warp_drain: memo {memo.stats()}")
+    for run, launches in (("dense", l_dense), ("warp", l_warp), ("bank", l_bank)):
+        require_launches(f"warp_drain {run}", launches, DRAIN_KERNELS)
+    if not (torch.equal(out_x.alive, out_d.alive) and state_converged(out_x)
+            and steady["dense"] == steady["distributional"]):
+        raise AssertionError(f"warp_drain: the distributional run is off the dense one: {steady}")
+    return out
+
+
+def stack_members(states):
+    """``[E, ...]`` leaves from standalone states."""
+    import torch
+
+    return dataclasses.replace(states[0], **{
+        f.name: torch.stack([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(states[0]) if getattr(states[0], f.name) is not None})
+
+
+def warp_fleet_members(cfg, n: int, kinds, device="cuda") -> list:
+    """Standalone members: converged (``ring_contacts=n-1``, announced),
+    mid-drain (two low-index victims killed, found within ~40 ticks; dense
+    ticks until the signature classes it ``hybrid``) and mid-boot
+    (``ring_contacts=2``), seed = index."""
+    from kaboodle_tpu_torch.sim import Scenario, idle_inputs, init_state, make_tick_fn
+    from kaboodle_tpu_torch.warp.horizon import decode_signature, make_signature_fn
+
+    tick, faulty = make_tick_fn(cfg, faulty=False), make_tick_fn(cfg, faulty=True)
+    sig, idle = make_signature_fn(cfg), idle_inputs(n, device=device)
+    members = []
+    for e, kind in enumerate(kinds):
+        if kind == "boot":
+            members.append(init_state(n, seed=e, ring_contacts=2, device=device))
+            continue
+        st = init_state(n, seed=e, ring_contacts=n - 1, announced=True, device=device)
+        if kind == "drain":
+            st, _ = faulty(st, Scenario(n, 1).kill_at(0, [2 + e, 30 + e]).build(device).at(0))
+            for _ in range(4 * n):
+                if decode_signature(sig(st)).mode == "hybrid":
+                    break
+                st, _ = tick(st, idle)
+            else:
+                raise AssertionError(f"drain member {e} never reached the hybrid class")
+        members.append(st)
+    return members
+
+
+def phase_warp_fleet() -> dict:
+    """``run_fleet_warped`` over a mixed E = 16 fleet of N = 1,024; members
+    against standalone ``run_warped`` on the card; a small warped fleet on
+    the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.fleet import FleetState, member_state
+    from kaboodle_tpu_torch.sim.state import fleet_to_numpy
+    from kaboodle_tpu_torch.warp.runner import WarpLedger, run_fleet_warped, run_warped
+
+    release_device_memory()
+    cfg = SwimConfig(ping_timeout_ticks=WARP_FLEET_TICKS)
+    n, ticks = WARP_FLEET_N, WARP_FLEET_TICKS
+    members = warp_fleet_members(cfg, n, WARP_FLEET_KINDS)
+    fleet = FleetState(mesh=stack_members(members), drop_rate=torch.zeros(len(members),
+                                                                           device="cuda"))
+    ledger = WarpLedger()
+    torch.cuda.reset_peak_memory_stats()
+    (out, ran, conv), wall, launches = timed(
+        lambda: run_fleet_warped(fleet, cfg, ticks, ledger=ledger))
+    peak = torch.cuda.max_memory_allocated()
+    rows = []
+    for e in WARP_FLEET_CHECK:
+        (ref, _, _), swall, _ = timed(lambda e=e: run_warped(members[e], cfg, ticks))
+        rows.append({"member": e, "kind": WARP_FLEET_KINDS[e], "standalone_wall_s": swall,
+                     "state_diff": state_diff(member_state(out, e), ref)})
+    engines = {}
+    for r in ledger.spans:
+        engines[r["engine"]] = engines.get(r["engine"], 0) + r["ticks"]
+
+    small_kinds = ("converged",) * 3 + ("drain",) * 3 + ("boot",) * 2
+    small_cfg = SwimConfig(ping_timeout_ticks=64)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mem = warp_fleet_members(small_cfg, 128, small_kinds, device=dev)
+        f = FleetState(mesh=stack_members(mem), drop_rate=torch.zeros(len(mem), device=dev))
+        res[dev] = fleet_to_numpy(run_fleet_warped(f, small_cfg, 128)[0])["mesh"]
+    small_bad = []
+    for k, w in res["cpu"].items():
+        g = res["cuda"][k]
+        if w is None or g is None:
+            if (w is None) != (g is None):
+                small_bad.append(k)
+        elif k == "latency":  # NaN positions equal, rtol 1e-5 (as phase parity)
+            if not (np.array_equal(np.isnan(g), np.isnan(w))
+                    and np.allclose(g, w, rtol=1e-5, atol=0.0, equal_nan=True)):
+                small_bad.append(k)
+        elif not np.array_equal(g, w):
+            small_bad.append(k)
+    out_line = {"phase": "warp_fleet", "e": len(members), "n": n, "ticks": ran,
+                "kinds": {k: WARP_FLEET_KINDS.count(k) for k in set(WARP_FLEET_KINDS)},
+                "wall_s": wall, "converged": int(conv.sum()), "engine_ticks": engines,
+                "why_dense": ledger.blocked_histogram(), "max_memory_allocated": peak,
+                "members_vs_standalone": rows, "launches": launches,
+                "card_vs_cpu": {"e": len(small_kinds), "n": 128, "ticks": 128,
+                                "leaves_equal": len(res["cpu"]) - len(small_bad),
+                                "differ": small_bad}}
+    emit(out_line)
+    if any(r["state_diff"] for r in rows):
+        raise AssertionError(f"warp_fleet: a member != its standalone run_warped: {rows}")
+    if not set(engines) & {"fleet-leap", "fleet-hybrid"}:
+        raise AssertionError(f"warp_fleet: no fleet leap round ran: {engines}")
+    if small_bad:
+        raise AssertionError(f"warp_fleet: the card's warped fleet != the CPU's in {small_bad}")
+    return out_line
+
+
 def main() -> int:
     import torch
 
@@ -1396,14 +1797,22 @@ def main() -> int:
     fsweep, sweep_res = phase_fleet_sweep()
     phase_fleet_parity(boot_res, sweep_res, fsweep["sweep_line"])
     del boot_res, sweep_res
-    # The blocked tick and the fleet run no kernel (as in the JAX package):
-    # their runs are counted, and launch 0, but no launch is required of them.
+    window = phase_warp_window()
+    drain = phase_warp_drain()
+    wfleet = phase_warp_fleet()
+    # The blocked tick, the fleet and the leaps run no kernel (as in the JAX
+    # package): their runs are counted, and launch 0, but no launch is
+    # required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
             "checkpoint_resume": ckpt["launches_resumed"],
             "chunked_boot": cboot["launches"], "chunked_faulty": cfaulty["launches"],
-            "fleet_boot": fboot["launches"], "fleet_sweep": fsweep["launches"]}
+            "fleet_boot": fboot["launches"], "fleet_sweep": fsweep["launches"],
+            "warp_window_dense": window["launches_dense"],
+            "warp_window_leap": window["launches_leap"],
+            **{f"warp_drain_{k}": v for k, v in drain["launches"].items()},
+            "warp_fleet": wfleet["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]
@@ -1411,9 +1820,8 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         shapes = []
         for row in (r for r in rows if r["kernel"] == name):
-            run = boot if row["cell"] == "boot" else churn
             shapes.append({**{k: v for k, v in row.items() if k != "kernel"},
-                           "launches": run["launches"][name]})
+                           "launches": sum(runs[r][name] for r in SHAPE_RUNS[row["cell"]])})
         # The headline numbers are those of the shape launched most often.
         top = max(shapes, key=lambda r: r["launches"])
         mine = [c for c in cases if c["kernel"] == name]

@@ -8,8 +8,11 @@
   the device holding the last K ticks' counters and per-member fingerprint
   digests, fetched to the host once by :func:`recorder_rows`.
 
-The JAX package's exporters (``manifest``, ``trace``, ``summary``) are not
-ported yet.
+- **Profiler labels** (:mod:`telemetry.trace`): ``host_span`` and
+  ``op_scope``, ``kaboodle:`` ranges of ``torch.profiler.record_function``.
+
+The JAX package's exporters (``manifest``, ``summary``, the Chrome-trace
+writers of ``trace``) are not ported yet.
 """
 
 from kaboodle_tpu_torch.telemetry.counters import (

@@ -11,7 +11,10 @@ Runs the main-path cells of ``chip_smoke.py`` (its ``boot_case``,
 N=65,536: the config-4 boot and the first 3 ticks of config 5 (the Join
 avalanche under drop, a drop tick in the partition, the first healed
 tick), and the fleet's drop-rate sweep (``fleet/bench.py::sweep``, E = 256
-meshes of N = 1,024, ``drop_rate=0:0.3:16``, at most 64 ticks), random
+meshes of N = 1,024, ``drop_rate=0:0.3:16``, at most 64 ticks), and the
+warp pass of ``BENCH_warp3.json``'s drain (``chip_smoke.warp_drain_case``:
+N = 1,024, ``simulate_warped`` over 1,024 calm ticks from the entry of the
+pass's first leap, a hybrid span, through the dense season after it), random
 mode -- twice each: once plain for the wall time (ending in
 ``torch.cuda.synchronize()``), once under ``torch.profiler`` for the device
 time by kernel. The dense cells are warmed up by a third run first; the
@@ -19,12 +22,16 @@ blocked and fleet cells, tens of seconds each, are not. Prints one JSON line per
 cell: wall seconds, device kernel time, the device's busy share (device
 time over the unprofiled wall) and the share of the four hand kernels;
 ``--out`` writes the full report, with the top device kernels by time,
-as JSON. Needs a CUDA card; builds the kernels itself.
+as JSON. Each cell also lists the port's ``kaboodle:`` profiler ranges
+(``telemetry/trace.py``): calls, host time and the device time of the
+kernels launched inside them; the warp cell adds the device time per dense
+tick and per leap step. Needs a CUDA card; builds the kernels itself.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -32,15 +39,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 HAND_KERNELS = ("fused_fp_kernel", "fused_suspicion_kernel", "fused_oldest_k_kernel")
+# Calm ticks of the drain's warp pass in the warp cell's profile.
+WARP_WINDOW = 1024
 CELLS = ("boot_n16384_lean", "churn_config3_n8192", "chunked_boot_config4_n65536",
-         "chunked_config5_n65536_3ticks", "fleet_sweep_e256_n1024")
+         "chunked_config5_n65536_3ticks", "fleet_sweep_e256_n1024", "warp_drain_n1024")
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, attrs=("self_device_time_total", "self_cuda_time_total")) -> float:
+    for attr in attrs:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def _ranges(prof) -> list[dict]:
+    """The host-side ``kaboodle:`` ranges: calls, host ms, and the device ms
+    of the kernels launched inside them."""
+    import torch
+
+    return [{"name": e.key, "count": e.count, "host_ms": e.cpu_time_total / 1e3,
+             "device_ms": _device_us(e, ("device_time_total", "cuda_time_total")) / 1e3}
+            for e in prof.key_averages()
+            if e.key.startswith("kaboodle:") and e.device_type == torch.autograd.DeviceType.CPU]
 
 
 def profile_cell(name: str, make, run, warm: bool = True) -> dict:
@@ -64,8 +84,11 @@ def profile_cell(name: str, make, run, warm: bool = True) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(state)
         torch.cuda.synchronize()
+    # Kernels only: a ``kaboodle:`` range also shows on the device timeline
+    # (its first to last kernel, idle gaps included), not as a kernel.
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+            and not e.key.startswith("kaboodle:")]
     total_us = sum(us for _, us, _ in rows)
     hand_us = sum(us for k, us, _ in rows if any(h in k for h in HAND_KERNELS))
     rows.sort(key=lambda r: -r[1])
@@ -78,6 +101,7 @@ def profile_cell(name: str, make, run, warm: bool = True) -> dict:
         "hand_kernel_share_of_device": hand_us / total_us if total_us else 0.0,
         "top_kernels": [{"name": k[:120], "device_ms": us / 1e3, "count": c}
                         for k, us, c in rows[:15]],
+        "ranges": _ranges(prof),
     }
 
 
@@ -85,6 +109,77 @@ def _fleet_sweep(args):
     from kaboodle_tpu_torch.fleet.bench import sweep
 
     return sweep(args)
+
+
+def _warp_drain_case(chip_smoke, device="cuda", window: int = WARP_WINDOW):
+    """``(make, run, warm, box)`` of a window of the drain's warp pass.
+
+    A profile of the whole calm half (~7 M host events) outgrows the
+    profiler's post-processing, so the cell profiles ``window`` calm ticks
+    from the entry of the pass's first leap (a hybrid span: its leap, then
+    the dense expiry season after it). ``make()`` finds that entry state
+    once (the churn half dense, then the warp pass unprofiled)."""
+    from kaboodle_tpu_torch.sim import simulate
+    from kaboodle_tpu_torch.warp.runner import WarpLedger, simulate_warped
+
+    cfg, st, churn, calm = chip_smoke.warp_drain_case(device=device)
+    box = {}
+
+    def make():
+        if "st" not in box:
+            entries, ledger = [], WarpLedger()
+            simulate_warped(simulate(st, churn, cfg, faulty=True)[0], calm, cfg, faulty=True,
+                            ledger=ledger, on_boundary=lambda t, s: entries.append((t, s)))
+            t0, box["st"] = entries[0]
+            box.update(window_from=t0, first_leap=ledger.spans[0]["engine"], calm_ticks=window,
+                       cfg=cfg)
+            box["inputs"] = dataclasses.replace(calm, **{
+                f.name: getattr(calm, f.name)[t0:t0 + window]
+                for f in dataclasses.fields(calm) if getattr(calm, f.name) is not None})
+        return box["st"]
+
+    def run(state):
+        box["dense_ticks"] = int(simulate_warped(state, box["inputs"], cfg, faulty=True)[1].size)
+
+    return make, run, True, box
+
+
+def _per_tick(cell: dict, box: dict, steps: int = 256, ticks: int = 64) -> None:
+    """Device ms per dense tick and per leap step from the warp cell's
+    ranges, and both timed directly from the window's entry state: a
+    ``steps``-step hybrid leap against ``ticks`` dense ticks, each run
+    ending in ``torch.cuda.synchronize()``."""
+    import torch
+
+    from kaboodle_tpu_torch.sim import idle_inputs, make_tick_fn
+    from kaboodle_tpu_torch.warp.runner import _get_leap
+
+    st, cfg = box["st"], box["cfg"]
+    leap, tick = _get_leap(cfg, steps, hybrid=True), make_tick_fn(cfg)
+    idle = idle_inputs(st.n, device=st.device)
+    def dense():
+        s = st
+        for _ in range(ticks):
+            s, _ = tick(s, idle)
+
+    walls = {}
+    for name, run in (("leap", lambda: leap(st)), ("dense", dense)):
+        run()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    cell.update(wall_ms_per_leap_step=1e3 * walls["leap"] / steps,
+                wall_ms_per_dense_tick=1e3 * walls["dense"] / ticks)
+    dense = sum(r["device_ms"] for r in cell["ranges"] if r["name"] == "kaboodle:dense_span")
+    leap = sum(r["device_ms"] for r in cell["ranges"]
+               if r["name"].startswith("kaboodle:leap_span:"))
+    leaped = box["calm_ticks"] - box["dense_ticks"]
+    cell.update(window_ticks=box["calm_ticks"], window_from_calm_tick=box["window_from"],
+                first_leap=box["first_leap"], dense_ticks=box["dense_ticks"], leaped_ticks=leaped,
+                device_ms_per_dense_tick=dense / max(box["dense_ticks"], 1),
+                device_ms_per_leap_step=leap / max(leaped, 1))
 
 
 def main() -> int:
@@ -111,11 +206,16 @@ def main() -> int:
         "chunked_config5_n65536_3ticks": lambda: chip_smoke.chunked_faulty_case(3)[1:] + (False,),
         "fleet_sweep_e256_n1024": lambda: (
             lambda: chip_smoke.fleet_args("--sweep", chip_smoke.FLEET_SWEEP), _fleet_sweep, False),
+        "warp_drain_n1024": lambda: _warp_drain_case(chip_smoke),
     }
     cells = []
     for name in args.cells.split(","):
-        cells.append(profile_cell(name, *cases[name]()))
-        print(json.dumps({k: v for k, v in cells[-1].items() if k != "top_kernels"}), flush=True)
+        case = cases[name]()
+        cells.append(profile_cell(name, *case[:3]))
+        if name == "warp_drain_n1024":
+            _per_tick(cells[-1], case[3])
+        line = {k: v for k, v in cells[-1].items() if k not in ("top_kernels", "ranges")}
+        print(json.dumps(line), flush=True)
     out = {"card": card, "torch": torch.__version__, "cells": cells}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

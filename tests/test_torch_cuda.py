@@ -274,3 +274,66 @@ def test_fleet_on_card_equals_cpu(card):
             gm, wm = gm.metrics, wm.metrics
         for k, w in metrics_to_numpy(wm).items():
             np.testing.assert_array_equal(metrics_to_numpy(gm)[k], w, err_msg=k)
+
+
+def _mid_drain(n, cfg, timer_dtype, dev):
+    """A converged mesh with 8 victims killed, every survivor's cell for them
+    armed ``WaitingForPing`` now, and half the rows already rid of victim 0
+    (fingerprints disagree, so anti-entropy fires every tick)."""
+    from kaboodle_tpu_torch.sim import Scenario
+    from kaboodle_tpu_torch.spec import WAITING_FOR_PING
+
+    st = init_state(n, seed=1, ring_contacts=n - 1, announced=True, timer_dtype=timer_dtype,
+                    device=dev)
+    victims = [(i * n) // 9 + 1 for i in range(8)]
+    st = make_tick_fn(cfg, faulty=True)(st, Scenario(n, 1).kill_at(0, victims).build(dev).at(0))[0]
+    S, T, alive = st.state.clone(), st.timer.clone(), st.alive
+    for v in victims:
+        S[alive, v] = WAITING_FOR_PING
+        T[alive, v] = int(st.tick)
+    S[alive & (torch.arange(n, device=dev) >= n // 2), victims[0]] = 0
+    return dataclasses.replace(st, state=S, timer=T)
+
+
+@pytest.mark.parametrize("timer_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("det", [True, False])
+def test_hybrid_leap_on_card_equals_dense(card, timer_dtype, det):
+    """The hybrid leap on the card against the port's dense ticks on the
+    card at N = 512, from a mid-drain state: bit-equal. In deterministic
+    mode the first step has mutual pings, so the leap's scatter-max and its
+    segment write-back both see duplicate cells."""
+    from kaboodle_tpu_torch.ops.sampling import choose_one_of_oldest_k
+    from kaboodle_tpu_torch.sim import idle_inputs
+    from kaboodle_tpu_torch.spec import KNOWN
+    from kaboodle_tpu_torch.warp.horizon import decode_signature, make_signature_fn
+    from kaboodle_tpu_torch.warp.leap import make_leap_fn
+
+    n, k = 512, 32
+    cfg = SwimConfig(deterministic=det, ping_timeout_ticks=4 * k)
+    st = _mid_drain(n, cfg, timer_dtype, card)
+    assert decode_signature(make_signature_fn(cfg)(st)).mode == "hybrid"
+    if det:
+        idx = torch.arange(n, device=card)
+        elig = st.alive[:, None] & (st.state == KNOWN) & (idx[:, None] != idx[None, :])
+        tgt = choose_one_of_oldest_k(st.timer, elig, 5, (0, 0), True).long()
+        assert bool(((tgt >= 0) & (tgt[tgt.clamp(min=0)] == idx)).any()), "no mutual ping"
+    tick = make_tick_fn(cfg, faulty=False)
+    idle = idle_inputs(n, device=card)
+    want = st
+    for _ in range(k):
+        want, _ = tick(want, idle)
+    got = make_leap_fn(cfg, k, hybrid=True)(st)
+    masked = make_leap_fn(cfg, 2 * k, hybrid=True, masked=True)(st, k)
+    for f in dataclasses.fields(want):
+        w = getattr(want, f.name)
+        if w is None:
+            assert getattr(got, f.name) is None
+            continue
+        for g in (getattr(got, f.name), getattr(masked, f.name)):
+            assert g.dtype == w.dtype and g.device == w.device, f.name
+            if w.is_floating_point():
+                assert torch.equal(torch.isnan(g), torch.isnan(w)), f.name
+                assert torch.equal(torch.nan_to_num(g, nan=0.0), torch.nan_to_num(w, nan=0.0))
+            else:
+                assert torch.equal(g, w), f.name
+    assert bool((got.kpr_partner >= 0).any()), "anti-entropy never fired"
