@@ -16,7 +16,8 @@ script exits non-zero without the result line:
                40 and k above the eligible count, negative timers, timers at
                the dtype max, dead rows. Each shape the main path launches a
                kernel at is timed with CUDA events over repeated launches,
-               beside its bound and its plain version; K4 also beside
+               beside its bound, its plain version and its launch floor (an
+               empty kernel at the same grid and block); K4 also beside
                ``torch.topk`` over a prebuilt key plane (a selection
                yardstick, not the same function).
 3. boot     -- fault-free broadcast boot to convergence at N = 16,384, lean
@@ -265,6 +266,50 @@ def oldest_k_key_plane(state, timer, alive):
     return torch.where(elig, T * 2**32 + col[None, :], torch.iinfo(torch.int64).max)
 
 
+# Warps (rows) per block of K4's launch (``kWarps`` in fused_oldest_k.cu,
+# which has no launch-shape query).
+OLDEST_K_WARPS = 4
+
+
+def launch_shape(name: str, n: int) -> tuple[int, int]:
+    """The grid and block ``name`` is launched with at ``n``: from its
+    library's ``kb_launch_shape`` (K1-K3), from ``OLDEST_K_WARPS`` (K4)."""
+    import ctypes
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    if name == "fused_oldest_k":
+        return -(-n // OLDEST_K_WARPS), 32 * OLDEST_K_WARPS
+    lib = _cuda.library(Path(KERNEL_META[name][0]).stem)
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    lib.kb_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.kb_launch_shape.restype = None
+    lib.kb_launch_shape(n, ctypes.byref(blocks), ctypes.byref(threads))
+    return blocks.value, threads.value
+
+
+def launch_floor_ms(name: str, n: int) -> tuple[float, list[int]]:
+    """An empty kernel at the grid and block of ``name``'s launch at ``n``,
+    timed as the kernel is (``time_ms``, 20 launches): the device time any
+    launch of that shape takes before it does work."""
+    import ctypes
+
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    blocks, threads = launch_shape(name, n)
+    lib = _cuda.library(Path(KERNEL_META[name][0]).stem)
+    lib.kb_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.kb_empty_launch.restype = ctypes.c_int
+    stream = _cuda.stream_handle(torch.device("cuda"))
+
+    def run():
+        _cuda.check(lib, lib.kb_empty_launch(blocks, threads, stream), "kb_empty_launch")
+
+    return time_ms(run, 20), [blocks, threads]
+
+
 def measure(name, n, k, state, timer, alive, idv, timed) -> tuple[dict, dict | None]:
     """One kernel case against its plain version; with ``timed`` (the main
     path cell whose shape this is) also its time, its bound and, for K4, the
@@ -313,9 +358,11 @@ def measure(name, n, k, state, timer, alive, idv, timed) -> tuple[dict, dict | N
     ops = (live * per_live + (n - live) * per_dead) * n
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
+    floor_ms, grid = launch_floor_ms(name, n)
     row = {
         "cell": timed, "shape": case, "rows_alive": live,
         "kernel_ms": time_ms(run, 20),
+        "launch_floor_ms": floor_ms, "launch_grid": grid,
         "plain_ms": time_ms(plain, 3),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -353,6 +400,7 @@ def phase_kernels() -> dict:
     plan += [("fused_suspicion", n, dt, 0,
               {(16384, i16): "boot", (8192, i32): "churn"}.get((n, dt)))
              for n in (16384, 8192, 4112, 1000) for dt in (i16, i32)]
+    plan += [("fused_suspicion", 1024, i16, 0, None), ("fused_fp_hash", 1024, i16, 0, None)]
     plan += [("fused_oldest_k", n, dt, k,
               {(16384, i16, 5): "boot", (8192, i32, 5): "churn"}.get((n, dt, k)))
              for n in (16384, 8192, 1000) for dt in (i16, i32) for k in (1, 5, 9)]
@@ -1832,7 +1880,8 @@ def main() -> int:
             "launches_by_run": {run: r[name] for run, r in runs.items()},
             "mismatches": sum(c["mismatches"] for c in mine),
             "max_abs_err": max((c["max_abs_err"] for c in mine), default=0),
-            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "ms": top["kernel_ms"], "launch_floor_ms": top["launch_floor_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "shape": top["shape"], "cell": top["cell"], "shapes": shapes,
         })

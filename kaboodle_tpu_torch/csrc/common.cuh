@@ -1,75 +1,87 @@
-// Shared pieces of the row-reduction kernels: block reductions, 16-byte
-// row loads, and the error string of a launch's return code.
+// Shared pieces of the row kernels: a lane's share of a row chunk, byte
+// tests over 4 state cells at once, an empty kernel for the launch floor,
+// and the error string of a launch's return code.
 //
-// The fingerprint and suspicion kernels reduce one row of an [N, N] plane
-// per block: the threads stride over the row (16 columns per thread per
-// step when the rows are 16-byte aligned, one column otherwise), reduce in
-// registers, then across the warp with shuffles and across the warps
-// through shared memory. The oldest-k kernel gives each row one warp (its
-// head comment says why).
+// Every kernel gives a row (or a band of rows) to one warp: a block holds
+// several warps and no warp waits on another, so there is no shared memory
+// and no block barrier. A row streams in chunks of 512 cells, 16 a lane,
+// loaded as 16-byte words straight into registers (rows 16-byte aligned and
+// N % 16 == 0); other rows take a scalar route of one cell a lane. A warp
+// ends its row with single-instruction warp reductions (__reduce_*_sync).
 #pragma once
 
 #include <cstdint>
 #include <climits>
 #include <cuda_runtime.h>
 
-#define KB_THREADS 256
-
 extern "C" const char* kb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-struct SumOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
-};
-struct MinOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return b < a ? b : a; }
-};
-struct MaxOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return b > a ? b : a; }
-};
+namespace {
 
-template <typename T, typename Op>
-__device__ __forceinline__ T warp_reduce(T v, Op op) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
-  return v;
+__global__ void kb_empty_kernel() {}
+
+}  // namespace
+
+// An empty kernel at a kernel's grid and block: what one launch costs on
+// the device before any work (the launch floor beside a kernel's bound).
+extern "C" int kb_empty_launch(int blocks, int threads, void* stream) {
+  kb_empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Reduce one value per thread over the block; the result is valid in
-// thread 0. Ends with a barrier so the scratch can be reused at once.
-template <typename T, typename Op>
-__device__ __forceinline__ T block_reduce(T v, Op op, T identity) {
-  __shared__ T scratch[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_reduce(v, op);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    v = lane < nwarps ? scratch[lane] : identity;
-    v = warp_reduce(v, op);
-  }
-  __syncthreads();
-  return v;
-}
+namespace kb {
 
-// 16 consecutive elements from a 16-byte aligned address, as int4 words.
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCells = 16;           // cells a lane per chunk: 16 bytes of state
+constexpr int kChunk = 32 * kCells;  // cells a warp per chunk
+
+// A lane's kCells elements of a row chunk (columns j0 .. j0 + 15), as
+// 16-byte words held in registers; zeros past the row's end, so a state
+// chunk there holds no member. Elements are read back by compile-time
+// index, which keeps them in registers.
 template <typename T>
-__device__ __forceinline__ void load16(const T* __restrict__ p, T (&out)[16]) {
-  constexpr int kWords = 16 * sizeof(T) / 16;
-  const int4* src = reinterpret_cast<const int4*>(p);
-  int4* dst = reinterpret_cast<int4*>(out);
+struct Words {
+  static constexpr int kN = kCells * sizeof(T) / 16;
+  int4 w[kN];
+
+  __device__ __forceinline__ void load(const T* __restrict__ row, int n, int j0) {
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) dst[w] = __ldg(src + w);
+    for (int i = 0; i < kN; ++i) w[i] = make_int4(0, 0, 0, 0);
+    if (j0 < n) {
+#pragma unroll
+      for (int i = 0; i < kN; ++i) w[i] = __ldg(reinterpret_cast<const int4*>(row + j0) + i);
+    }
+  }
+  // 32-bit word i: elements i * 4 / sizeof(T) onwards, the lowest first.
+  __device__ __forceinline__ unsigned word(int i) const {
+    const int4& v = w[i >> 2];
+    const int k = i & 3;
+    return static_cast<unsigned>(k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w);
+  }
+  __device__ __forceinline__ int at(int c) const {
+    constexpr int kPer = 4 / sizeof(T);
+    const unsigned x = word(c / kPer) >> (8 * sizeof(T) * (c % kPer));
+    return static_cast<int>(static_cast<T>(x));
+  }
+};
+
+// Four int8 cells in one word: bit 8b+7 is set where byte b > 0 (signed).
+__device__ __forceinline__ unsigned bytes_positive(unsigned w) {
+  return ((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) & ~w & 0x80808080u;
 }
 
-// The (timer, column) pair as one key whose signed order is the
-// lexicographic order: timer first, then the column.
-__device__ __forceinline__ long long lex_key(int t, int j) {
-  return static_cast<long long>(t) * 4294967296LL + j;
+// Bit 8b+7 set where byte b equals v (0 <= v < 128): the exact zero-byte
+// test of w ^ v repeated.
+__device__ __forceinline__ unsigned bytes_equal(unsigned w, unsigned v) {
+  const unsigned y = w ^ (v * 0x01010101u);
+  return ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y) & 0x80808080u;
 }
+
+// Whether cell c of a lane's chunk is set in its byte-test word c / 4.
+__device__ __forceinline__ bool cell_bit(unsigned m, int c) {
+  return (m >> (8 * (c & 3) + 7)) & 1u;
+}
+
+}  // namespace kb

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The dense boot and churn of ``chip_smoke.py``: this tree against another checkout's.
+"""The dense boot, churn and warp drain of ``chip_smoke.py``: this tree against another checkout's.
 
     python3 scripts/dense_ab.py --other DIR
 
@@ -13,7 +13,10 @@ broadcast boot (``boot_case``), the N = 8,192 BASELINE config-3 churn
 with its peak and a SHA-256 digest of the run's final state and metrics
 (every leaf's bytes) to show the two trees compute the same bits, and the
 facade script at capacity 8,192 (``facade_script``: wall and host event
-delivery per tick, and its tick counts, which must agree). Prints
+delivery per tick, and its tick counts, which must agree), and the warp
+drain (``warp_drain_case``: its churn half dense, then the calm half
+through ``simulate_warped``; both walls, the dense tick count and the
+final state's digest). Prints
 the card line, one JSON line per run, then the summary: each side's walls,
 the ratio of this tree's median wall to the other's, and whether every
 digest agrees. Needs a CUDA card and nvcc.
@@ -67,6 +70,13 @@ sc, cmake, crun = chip_smoke.churn_case()
 churn_digest = digest(cfinal, metrics)
 del cfinal, metrics
 facade = chip_smoke.facade_script(8192, 512, 32, "cuda", log_events=False)
+from kaboodle_tpu_torch.sim import simulate
+from kaboodle_tpu_torch.warp.runner import simulate_warped
+cfg, dst, churn_in, calm_in = chip_smoke.warp_drain_case()
+(dst, _), drain_churn_s, _ = timed(lambda s: simulate(s, churn_in, cfg, faulty=True), dst)
+(dfinal, dense_ticks, _), drain_warp_s, _ = timed(
+    lambda s: simulate_warped(s, calm_in, cfg, faulty=True), dst)
+drain_digest = digest(dfinal)
 print(json.dumps({"root": root, "boot_wall_s": boot_s, "boot_ticks": ticks,
                   "boot_converged": conv, "boot_peak": boot_peak, "boot_digest": boot_digest,
                   "churn_wall_s": churn_s, "churn_peak": churn_peak,
@@ -75,7 +85,9 @@ print(json.dumps({"root": root, "boot_wall_s": boot_s, "boot_ticks": ticks,
                   "facade_deliver_events_ms_per_tick": facade["deliver_events_ms_per_tick"],
                   "facade_ticks": [facade[k] for k in ("ticks", "boot_ticks", "departure_ticks",
                                                        "reconverge_ticks",
-                                                       "rename_reconverge_ticks")]}))
+                                                       "rename_reconverge_ticks")],
+                  "drain_churn_wall_s": drain_churn_s, "drain_warp_wall_s": drain_warp_s,
+                  "drain_dense_ticks": int(dense_ticks.size), "drain_digest": drain_digest}))
 """
 
 
@@ -101,13 +113,16 @@ def main() -> int:
         runs.append(row)
         print(json.dumps(row), flush=True)
     summary = {"card": card}
-    for key in ("boot_wall_s", "churn_wall_s", "facade_ms_per_tick"):
+    ratios = {"boot_wall_s": "boot", "churn_wall_s": "churn", "facade_ms_per_tick": "facade",
+              "drain_churn_wall_s": "drain_churn", "drain_warp_wall_s": "drain_warp"}
+    for key, name in ratios.items():
         walls = {s: [r[key] for r in runs if r["side"] == s] for s in ("this", "other")}
         summary[key] = walls
-        summary[key.split("_")[0] + "_ratio_this_over_other"] = (
+        summary[name + "_ratio_this_over_other"] = (
             statistics.median(walls["this"]) / statistics.median(walls["other"]))
     summary["bits_equal"] = all(len({str(r[k]) for r in runs}) == 1
-                                for k in ("boot_digest", "churn_digest", "facade_ticks"))
+                                for k in ("boot_digest", "churn_digest", "facade_ticks",
+                                          "drain_digest", "drain_dense_ticks"))
     print(json.dumps(summary), flush=True)
     return 0 if summary["bits_equal"] else 1
 

@@ -26,6 +26,7 @@ from kaboodle_tpu_torch.sim import (
     make_tick_fn,
 )
 from kaboodle_tpu_torch.sim.state import metrics_to_numpy, state_to_numpy
+from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
 
 pytestmark = pytest.mark.cuda
 
@@ -54,7 +55,7 @@ def _equal(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048])
+@pytest.mark.parametrize("n", [1, 33, 256, 1000, 1024, 2048, 4100, 4112, 8192])
 def test_fused_fp_on_card(card, n):
     state, _, _, idv = _inputs(n, torch.int32, n, card)
     before = _cuda.launches["fused_fp_idv"]
@@ -63,13 +64,78 @@ def test_fused_fp_on_card(card, n):
     assert _cuda.launches["fused_fp_idv"] == before + 1
 
 
-@pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048])
+@pytest.mark.parametrize("n", [1, 33, 256, 1000, 1024, 2048, 4100, 4112, 8192])
 @pytest.mark.parametrize("timer_dtype", [torch.int16, torch.int32])
 def test_fused_suspicion_on_card(card, n, timer_dtype):
     state, timer, alive, _ = _inputs(n, timer_dtype, n + 1, card)
     for thr in (-3, 9):
         _equal(fused_suspicion(state, timer, alive, thr),
                fused_suspicion_plain(state, timer, alive, thr))
+
+
+def _edge_rows(n, timer_dtype, alive_mode, seed):
+    """Planes whose rows probe the row kernels' edges (numpy, then torch).
+
+    Timers come from the dtype's min and max, their neighbours and the
+    values around the thresholds the tests use (0, 9), so ties are common.
+    Row 0: every cell WaitingForPing at one tied timer (jstar is the lowest
+    column); row 1: WaitingForPing only at the dtype's max and min, the min
+    at a column above the row's first chunk; row 2: the only Known cell is
+    the diagonal (has_cand false); row 3: WaitingForIndirectPing at
+    exactly 9; row 4: WaitingForPing at one timer in two far chunks, lower
+    timers only on other states. ``alive_mode`` is "all", "none" or
+    "mixed"."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(timer_dtype)
+    vals = np.array([info.min, info.min + 1, -1, 0, 1, 8, 9, 10, info.max - 1, info.max])
+    state = rng.integers(0, 4, (n, n)).astype(np.int8)
+    timer = rng.choice(vals, (n, n)).astype(timer_dtype)
+    alive = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+             "mixed": rng.random(n) < 0.5}[alive_mode]
+    if n > 0:
+        state[0], timer[0] = WAITING_FOR_PING, 9
+    if n > 1:
+        state[1] = WAITING_FOR_PING
+        timer[1] = info.max
+        timer[1, n // 2 + n % 2::3] = info.min
+    if n > 2:
+        state[2] = 0
+        state[2, 2] = KNOWN
+    if n > 3:
+        state[3], timer[3] = WAITING_FOR_INDIRECT_PING, 9
+    if n > 4:
+        state[4] = np.where(state[4] == WAITING_FOR_PING, 0, state[4])
+        timer[4] = np.where(state[4] > 0, info.min, timer[4])
+        for j in (n // 3, n - 1):
+            state[4, j], timer[4, j] = WAITING_FOR_PING, -1
+    return state, timer, alive
+
+
+def _edge_thresholds(timer_dtype):
+    """Below every timer, at the dtype's min, at 9 (row 3's timers), at the
+    dtype's max and, for int16, above it."""
+    info = np.iinfo(timer_dtype)
+    above = [info.max + 1] if info.max < np.iinfo(np.int32).max else []
+    return [info.min - 1] * (info.min > np.iinfo(np.int32).min) + [info.min, 9, info.max] + above
+
+
+@pytest.mark.parametrize("n", [1, 33, 1024, 4112, 8192])
+@pytest.mark.parametrize("timer_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("alive_mode", ["all", "none", "mixed"])
+def test_row_kernels_edge_rows_on_card(card, n, timer_dtype, alive_mode):
+    """fused_suspicion and both fused_fp modes on edge rows: ties at one
+    timer, timers at thr and at the dtype's extremes, all rows dead or all
+    alive, the diagonal as the only Known cell."""
+    s, t, a = _edge_rows(n, timer_dtype, alive_mode, n)
+    state, timer = torch.from_numpy(s).to(card), torch.from_numpy(t).to(card)
+    alive = torch.from_numpy(a).to(card)
+    for thr in _edge_thresholds(timer_dtype):
+        _equal(fused_suspicion(state, timer, alive, thr),
+               fused_suspicion_plain(state, timer, alive, thr))
+    idv = torch.from_numpy(t.astype(np.int32) * 40503).to(card)
+    _equal(fused_fp_count(state, idv), fused_fp_count_plain(state, idv))
+    _equal(fused_fp_count(state, idv[min(1, n - 1)]),
+           fused_fp_count_plain(state, idv[min(1, n - 1)]))
 
 
 @pytest.mark.parametrize("n", [1, 33, 256, 1000, 2048, 4112])

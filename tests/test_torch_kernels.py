@@ -159,6 +159,73 @@ def test_oldest_k_plain_matches_jnp_any_n(timer_dtype):
         assert (gi.numpy()[~gv.numpy()] == 199).all()  # empty slots hold n - 1
 
 
+def _edge_rows(n, timer_dtype, alive_mode, seed):
+    """Rows at the row kernels' edges (the card tests build the same): ties
+    at one timer, timers at 9 and at the dtype's extremes, WaitingForPing
+    at one timer in two far columns, the diagonal as the only Known cell;
+    all rows alive, none, or a mix."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(timer_dtype)
+    vals = np.array([info.min, info.min + 1, -1, 0, 1, 8, 9, 10, info.max - 1, info.max])
+    state = rng.integers(0, 4, (n, n)).astype(np.int8)
+    timer = rng.choice(vals, (n, n)).astype(timer_dtype)
+    alive = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+             "mixed": rng.random(n) < 0.5}[alive_mode]
+    if n > 0:
+        state[0], timer[0] = WAITING_FOR_PING, 9
+    if n > 1:
+        state[1] = WAITING_FOR_PING
+        timer[1] = info.max
+        timer[1, n // 2 + n % 2::3] = info.min
+    if n > 2:
+        state[2] = 0
+        state[2, 2] = KNOWN
+    if n > 3:
+        state[3], timer[3] = WAITING_FOR_INDIRECT_PING, 9
+    if n > 4:
+        state[4] = np.where(state[4] == WAITING_FOR_PING, 0, state[4])
+        timer[4] = np.where(state[4] > 0, info.min, timer[4])
+        for j in (n // 3, n - 1):
+            state[4, j], timer[4, j] = WAITING_FOR_PING, -1
+    return state, timer, alive
+
+
+def _edge_thresholds(timer_dtype):
+    info = np.iinfo(timer_dtype)
+    above = [info.max + 1] if info.max < np.iinfo(np.int32).max else []
+    return [info.min - 1] * (info.min > np.iinfo(np.int32).min) + [info.min, 9, info.max] + above
+
+
+@pytest.mark.parametrize("n", [1, 33, 128])
+@pytest.mark.parametrize("timer_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("alive_mode", ["all", "none", "mixed"])
+def test_plain_kernels_match_jax_on_edge_rows(n, timer_dtype, alive_mode):
+    """The kernels' yardsticks on edge rows against the JAX tick's jnp
+    formulation (every threshold) and, at N = 128 with mixed rows, the
+    Pallas functions in interpret mode."""
+    state, timer, alive = _edge_rows(n, timer_dtype, alive_mode, n)
+    for thr in _edge_thresholds(timer_dtype):
+        got = fused_suspicion(_t(state), _t(timer), _t(alive), thr)
+        for g, w in zip(got, _jnp_suspicion(state, timer, alive, thr)):
+            np.testing.assert_array_equal(g.numpy(), w)
+    idv = (timer.astype(np.int64) * 40503).astype(np.uint32)
+    for ident in (idv, idv[min(1, n - 1)]):
+        fp, cnt = fused_fp_count(_t(state), _u32(ident))
+        want_fp, want_cnt = _jnp_fp(state, ident)
+        np.testing.assert_array_equal(fp.numpy().view(np.uint32), want_fp)
+        np.testing.assert_array_equal(cnt.numpy(), want_cnt)
+    if n == 128 and alive_mode == "mixed":
+        got = fused_suspicion(_t(state), _t(timer), _t(alive), 9)
+        want = pallas_suspicion(jnp.asarray(state), jnp.asarray(timer), jnp.asarray(alive), 9,
+                                interpret=True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        fp, cnt = fused_fp_count(_t(state), _u32(idv))
+        want_fp, want_cnt = pallas_fp(jnp.asarray(state), jnp.asarray(idv), interpret=True)
+        np.testing.assert_array_equal(fp.numpy().view(np.uint32), np.asarray(want_fp))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+
+
 def test_wrappers_check_inputs_and_count_no_cpu_launches():
     state, timer, alive, idv = _case(64, np.int16, 4)
     before = dict(_cuda.launches)
