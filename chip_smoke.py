@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs eighteen phases, each printing one JSON line; any failure raises and the
+runs twenty phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -110,14 +110,38 @@ script exits non-zero without the result line:
                standalone ``run_warped`` on the card, the ledger with fleet
                leap rounds; then an E = 8, N = 128 warped fleet on the card
                equal to the same fleet on the CPU.
+19. serve    -- ``ServeServer`` in-process on 127.0.0.1 (ephemeral port) over
+               ``LanePool(1024, 64)`` and ``LanePool(4096, 8)`` on the card,
+               the server's defaults otherwise (deterministic config, not
+               faulty, chunk 8, warp and the process span memo on,
+               ``max_leap`` 256), journal and spills in a temporary
+               directory of the checkout: the warmup timed, then 8
+               concurrent ``ServeClient``s submit 104 requests (64 converge
+               boots at n = 1,000, 32 steady runs of 256 ticks at 1,024, 4
+               boots and 4 steady runs of 128 ticks at 4,096) while a ninth
+               connection cancels one request and takes a kept one through
+               park, spill, restore and a 16-tick resume. Every request ends
+               done or cancelled, ``compiles_steady`` (programs built after
+               warmup) is 0, the streamed records equal the manifest's, and 8
+               sampled harvests (both classes, both modes) and the resumed
+               request equal standalone runs on the card, member leaf by
+               leaf with ``conv_tick`` and the fingerprint statistics.
+               Warmup, wall, requests/s, client p50/p99, rounds by engine,
+               memo hits and bytes, a leap round's wall split into the leap
+               program and the memo's host work, peak memory.
+20. serve_parity -- ``serve/dryrun.py::parity_script`` (class 64, 8 lanes,
+               chunk 4, the kept request's spill round trip included) on the
+               card and on the CPU: status rows, records, ``serve_round``
+               records and final pools bit-equal.
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the facade at capacity 8,192, the checkpoint's
-resumed ticks, the two blocked runs, the two fleet runs and the warp runs)
-and read just after: each kernel of the dense path must have launched; the
-blocked tick, the fleet and the leaps run no kernel (as in the JAX
-package, whose fleet refuses the Pallas flags and whose leap has no Pallas
-call), so their runs count 0 and none is required of them; every one-mesh
+resumed ticks, the two blocked runs, the two fleet runs, the warp runs and
+the two serve runs) and read just after: each kernel of the dense path
+must have launched; the blocked tick, the fleet, the leaps and the serve
+step run no kernel (as in the JAX package, whose fleet refuses the Pallas
+flags and whose leap has no Pallas call), so their runs count 0 and none
+is required of them; every one-mesh
 warp run with a dense tick in it must launch the dense path's kernels. The
 last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` summary (per kernel the numbers of the shape it is
@@ -1807,6 +1831,349 @@ def phase_warp_fleet() -> dict:
     return out_line
 
 
+# The serving slice: the server's defaults at two classes on the card.
+SERVE_SMALL, SERVE_LARGE = 1024, 4096  # the two N-classes
+SERVE_LANES = (64, 8)  # lanes of each
+SERVE_CHUNK = 8
+SERVE_MAX_LEAP = 256
+SERVE_CLIENTS = 8
+SERVE_RESUME_TICKS = 16
+
+
+def serve_ticks(n: int) -> int:
+    """A ticks-mode request's budget in class ``n``."""
+    return 256 if n == SERVE_SMALL else 128
+
+
+def serve_keep() -> tuple:
+    """The kept request (class, seed): parked, spilled, restored, resumed."""
+    return SERVE_SMALL, 500
+
+
+def serve_samples() -> tuple:
+    """Sampled harvests (class, seed): converge boots and ticks-mode runs of
+    both classes, held against standalone runs on the card."""
+    small, large = SERVE_SMALL, SERVE_LARGE
+    return ((small, 0), (small, 63), (large, 300), (large, 303),
+            (small, 100), (small, 131), (large, 400), (large, 403))
+
+
+def mode_of(seed: int) -> str:
+    """The mode of the mix's request with this seed (the kept one: converge)."""
+    return "ticks" if 100 <= seed < 300 or 400 <= seed < 500 else "converge"
+
+
+def serve_requests() -> list:
+    """The phase's mix, ``(n, fields)`` in submission order: 64 converge
+    boots at n = 1,000 (class 1,024), 32 ticks-mode steady runs of 256
+    ticks at 1,024, 4 converge boots and 4 steady runs of 128 ticks at
+    4,096."""
+    small, large = SERVE_SMALL, SERVE_LARGE
+    steady = dict(mode="ticks", scenario="steady")
+    return ([(small - small // 41, dict(seed=s)) for s in range(64)]
+            + [(small, dict(seed=100 + s, ticks=serve_ticks(small), **steady))
+               for s in range(32)]
+            + [(large, dict(seed=300 + s)) for s in range(4)]
+            + [(large, dict(seed=400 + s, ticks=serve_ticks(large), **steady))
+               for s in range(4)])
+
+
+def serve_reference(cfg, n: int, seed: int, mode: str, ticks: int, extra: int = 0):
+    """The standalone run a harvest must equal: ``run_until_converged``
+    (converge mode, then ``extra`` dense ticks) or ``ticks`` dense ticks
+    from the steady init (ticks mode). Returns ``(state, conv_tick)``."""
+    from kaboodle_tpu_torch.sim import idle_inputs, init_state, make_tick_fn, run_until_converged
+    from kaboodle_tpu_torch.sim.runner import state_converged
+
+    tick, idle = make_tick_fn(cfg, faulty=False), idle_inputs(n)
+    if mode == "converge":
+        st, ran, _ = run_until_converged(init_state(n, seed=seed), cfg, max_ticks=ticks)
+        conv = ran
+        steps = extra
+    else:
+        st = init_state(n, seed=seed, ring_contacts=n - 1, announced=True)
+        conv = 0 if state_converged(st) else -1
+        steps = ticks
+    for t in range(steps):
+        st, m = tick(st, idle)
+        if conv < 0 and bool(m.converged):
+            conv = t + 1
+    return st, conv
+
+
+def leap_round_timer():
+    """Wrap ``warp.runner.memo_fleet_leap`` (the serve pool's memo-on leap
+    round) to split each round's wall into the leap program's device time
+    and the memo's host work (fetch, digest, replay, upload), each ended by
+    a ``synchronize``. Returns the totals dict and an undo."""
+    import torch
+
+    from kaboodle_tpu_torch.warp import runner
+
+    real = runner.memo_fleet_leap
+    tot = {"rounds": 0, "dispatched": 0, "round_s": 0.0, "leap_program_s": 0.0}
+
+    def timed_round(family, mesh_state, k_m, memo, dispatch):
+        def timed_dispatch(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = dispatch(*a)
+            torch.cuda.synchronize()
+            tot["leap_program_s"] += time.perf_counter() - t
+            return out
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real(family, mesh_state, k_m, memo, timed_dispatch)
+        torch.cuda.synchronize()
+        tot["round_s"] += time.perf_counter() - t
+        tot["rounds"] += 1
+        tot["dispatched"] += int(res[2])
+        return res
+
+    runner.memo_fleet_leap = timed_round
+    return tot, lambda: setattr(runner, "memo_fleet_leap", real)
+
+
+async def serve_exercise(tmp: Path) -> dict:
+    """The in-process server on the card, 8 clients, the request mix, the
+    kept request's lifecycle and a cancel; everything the phase checks."""
+    import asyncio
+
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.serve.client import ServeClient
+    from kaboodle_tpu_torch.serve.engine import ServeEngine
+    from kaboodle_tpu_torch.serve.obsplane import ObsPlane
+    from kaboodle_tpu_torch.serve.pool import LanePool
+    from kaboodle_tpu_torch.serve.server import ServeServer
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.telemetry.manifest import read_manifest
+
+    cfg = SwimConfig(deterministic=True)
+    torch.cuda.reset_peak_memory_stats()
+    pools = [LanePool(n, lanes, cfg=cfg, chunk=SERVE_CHUNK)
+             for n, lanes in zip((SERVE_SMALL, SERVE_LARGE), SERVE_LANES)]
+    (tmp / "spill").mkdir()
+    engine = ServeEngine(pools, warp=True, max_leap=SERVE_MAX_LEAP, warp_memo=True,
+                         spill_after=2, spill_dir=str(tmp / "spill"),
+                         journal_dir=str(tmp / "wal"), obs=ObsPlane(trace=False))
+    manifest = tmp / "manifest.jsonl"
+    server = ServeServer(engine, host="127.0.0.1", port=0, manifest_path=str(manifest))
+    harvests: dict = {}  # (class, seed) -> [(result fields, member on the card)]
+    fanout = engine.on_event
+
+    def tap(rec):  # a harvest event is emitted before its lane is released
+        fanout(rec)
+        if rec.get("kind") == "serve_event" and rec.get("event") in (
+                "converged", "completed", "exhausted"):
+            req = engine._requests[rec["request_id"]]["req"]
+            key = (req.n_class, req.seed)
+            if key in serve_samples() or key == serve_keep():
+                member = engine.pools[rec["pool_n"]].member(rec["lane"])
+                harvests.setdefault(key, []).append((dict(rec), member))
+
+    engine.on_event = tap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    await server.start()
+    ctl = await ServeClient.connect(port=server.port)
+    stream = await ctl.open_stream()
+    streamed: list = []
+
+    async def pump():
+        async for rec in stream:
+            streamed.append(rec)
+
+    pump_task = asyncio.create_task(pump())
+    leap_split, undo = leap_round_timer()
+    _cuda.reset_launches()
+    reqs = serve_requests()
+    lat: list = []
+
+    async def client_run(k: int):
+        c = await ServeClient.connect(port=server.port)
+        mine = []
+        for n, fields in reqs[k::SERVE_CLIENTS]:
+            mine.append((time.perf_counter(), await c.submit(n, **fields)))
+        for ts, rid in mine:
+            await c.wait(rid, timeout=900)
+            lat.append(time.perf_counter() - ts)
+        await c.close()
+
+    async def keep_and_cancel():
+        n, seed = serve_keep()
+        c = await ServeClient.connect(port=server.port)
+        gone = await c.submit(n, seed=600, mode="ticks", ticks=4096)
+        cancelled = await c.cancel(gone)
+        rid = await c.submit(n, seed=seed, keep=True)
+        first = await c.wait(rid, timeout=900)
+        for _ in range(60_000):
+            row = await c.status(rid)
+            if row["state"] == "spilled":
+                break
+            await asyncio.sleep(0.01)
+        else:
+            raise AssertionError(f"serve: the kept request never spilled: {row}")
+        assert await c.restore(rid)
+        await c.resume(rid, mode="ticks", ticks=SERVE_RESUME_TICKS)
+        resumed = await c.wait(rid, timeout=900)
+        assert await c.cancel(rid)
+        await c.close()
+        return {"rid": rid, "first": first, "spilled": row, "resumed": resumed,
+                "cancel_rid": gone, "cancelled": cancelled}
+
+    t1 = time.perf_counter()
+    kept, *_ = await asyncio.gather(keep_and_cancel(),
+                                    *(client_run(k) for k in range(SERVE_CLIENTS)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    undo()
+    launches = counts()
+    status = await ctl.status()
+    gauges = engine.obs.metrics.collect()["gauges"]
+    hist = engine.obs.profiler.totals_us()
+    memo = engine.warp_memo.stats()
+    peak = torch.cuda.max_memory_allocated()
+    await ctl.shutdown()
+    await server.close()
+    await asyncio.wait_for(pump_task, 60)
+    written = list(read_manifest(str(manifest), validate=True))
+    return {"warm_s": warm_s, "wall": wall, "lat": lat, "kept": kept,
+            "status": status, "gauges": gauges, "segments_us": hist, "memo": memo,
+            "peak": peak, "launches": launches, "streamed": streamed, "written": written,
+            "harvests": harvests, "leap_split": leap_split, "cfg": cfg}
+
+
+def phase_serve() -> dict:
+    """``ServeServer`` on the card with the server's defaults at classes
+    1,024 x 64 lanes and 4,096 x 8: warmup, 8 concurrent clients and the
+    106-request mix, the kept request's spill round trip, a cancel; every
+    request done or cancelled, nothing built after warmup, streamed ==
+    written, sampled harvests and the resumed request equal to standalone
+    runs on the card."""
+    import asyncio
+
+    import numpy as np
+
+    from kaboodle_tpu_torch.sim.runner import state_agreement
+
+    release_device_memory()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        res = asyncio.run(serve_exercise(Path(d)))
+    bad = [r for r in res["status"] if r["state"] not in ("done", "cancelled")]
+    if bad:
+        raise AssertionError(f"serve: requests not done or cancelled: {bad[:4]}")
+    steady = res["gauges"]["compiles_steady"][""]
+    if steady != 0:
+        raise AssertionError(f"serve: {steady} programs built after warmup")
+    if res["written"][0].get("event") != "warm" or res["written"][1:] != res["streamed"]:
+        raise AssertionError(f"serve: streamed records ({len(res['streamed'])}) != the "
+                             f"manifest's ({len(res['written'])})")
+    cfg = res["cfg"]
+    checks = []
+    for key in serve_samples() + (serve_keep(),):
+        n, seed = key
+        got = res["harvests"].get(key)
+        if not got:
+            raise AssertionError(f"serve: no harvest captured for {key}")
+        rec, member = got[-1]
+        if key == serve_keep():
+            ref, conv = serve_reference(cfg, n, seed, "converge", 64, extra=SERVE_RESUME_TICKS)
+        else:
+            mode = mode_of(seed)
+            ticks = 64 if mode == "converge" else serve_ticks(n)
+            ref, conv = serve_reference(cfg, n, seed, mode, ticks)
+        conv_ok, fp_min, fp_max, n_alive = state_agreement(ref)
+        want = {"conv_tick": conv, "converged": bool(conv_ok),
+                "fp_min": int(fp_min) & 0xFFFFFFFF, "fp_max": int(fp_max) & 0xFFFFFFFF,
+                "n_alive": int(n_alive), "ticks_run": int(ref.tick)}
+        if mode_of(seed) == "ticks" and rec["conv_tick"] == -1:
+            # A ticks-mode lane that only ever leaped never had its entry
+            # agreement observed (the leap round does not test it, in the
+            # JAX engine too): -1 is the served value then.
+            want["conv_tick"] = -1
+        have = {k: rec[k] for k in want}
+        diff = state_diff(member, ref)
+        checks.append({"class": n, "seed": seed, "event": rec["event"],
+                       "ticks_run": rec["ticks_run"], "conv_tick": rec["conv_tick"],
+                       "stats_equal": have == want, "state_diff": diff})
+        del ref, member
+    lat = np.sort(np.asarray(res["lat"]))
+    rounds: dict = {}
+    for r in res["written"]:
+        if r["kind"] == "serve_round":
+            rounds[r["engine"]] = rounds.get(r["engine"], 0) + 1
+    split = res["leap_split"]
+    out = {"phase": "serve", "classes": [[SERVE_SMALL, SERVE_LANES[0]],
+                                         [SERVE_LARGE, SERVE_LANES[1]]],
+           "chunk": SERVE_CHUNK, "max_leap": SERVE_MAX_LEAP, "clients": SERVE_CLIENTS,
+           "requests": len(res["status"]), "warmup_s": res["warm_s"], "wall_s": res["wall"],
+           "requests_per_s": len(res["lat"]) / res["wall"],
+           "latency_p50_s": float(np.percentile(lat, 50)),
+           "latency_p99_s": float(np.percentile(lat, 99)),
+           "rounds": rounds, "memo_hits": res["memo"]["hits"],
+           "memo_misses": res["memo"]["misses"], "memo_bytes": res["memo"]["bytes"],
+           "memo_evictions": res["memo"]["evictions"],
+           "leap_rounds_memo_on": split["rounds"], "leap_rounds_dispatched": split["dispatched"],
+           "leap_round_wall_s": split["round_s"], "leap_program_s": split["leap_program_s"],
+           "round_segments_us": res["segments_us"], "compiles_steady": steady,
+           "max_memory_allocated": res["peak"], "launches": res["launches"],
+           "records": len(res["written"]), "harvests_vs_standalone": checks,
+           "kept": {"first_ticks": res["kept"]["first"]["result"]["ticks_run"],
+                    "resumed_ticks": res["kept"]["resumed"]["result"]["ticks_run"],
+                    "spill_path_seen": bool(res["kept"]["spilled"].get("spill_path"))},
+           "cancel": res["kept"]["cancelled"]}
+    emit(out)
+    wrong = [c for c in checks if not c["stats_equal"] or c["state_diff"]]
+    if wrong:
+        raise AssertionError(f"serve: harvests != standalone runs: {wrong}")
+    if not res["kept"]["cancelled"]:
+        raise AssertionError("serve: the cancel found its request already finished")
+    return out
+
+
+def phase_serve_parity() -> dict:
+    """``serve/dryrun.py::parity_script`` (class 64, 8 lanes, chunk 4, the
+    kept request's spill round trip) on the card and on the CPU: status
+    rows, records, ``serve_round`` records and final pools bit-equal."""
+    import numpy as np
+
+    from kaboodle_tpu_torch.serve.dryrun import parity_script
+
+    res, launches = {}, None
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        for dev in ("cuda", "cpu"):
+            (Path(d) / dev).mkdir()
+            if dev == "cuda":
+                res[dev], wall, launches = timed(lambda: parity_script("cuda", str(Path(d) / dev)))
+            else:
+                res[dev] = parity_script("cpu", str(Path(d) / dev))
+    got, want = res["cuda"], res["cpu"]
+    differ = [k for k in ("status", "records", "rounds") if got[k] != want[k]]
+    if not np.array_equal(got["generation"], want["generation"]):
+        differ.append("generation")
+    for part in ("pool", "kept_member"):
+        for k, w in want[part].items():
+            g = got[part][k]
+            if (w is None) != (g is None):
+                differ.append(f"{part}.{k}")
+            elif w is not None and not (g.dtype == w.dtype and np.array_equal(
+                    g, w, equal_nan=bool(np.issubdtype(w.dtype, np.floating)))):
+                differ.append(f"{part}.{k}")
+    out = {"phase": "serve_parity", "n": 64, "lanes": 8, "chunk": 4, "card_wall_s": wall,
+           "rounds": [[r["engine"], r["lanes"], r["ticks"]] for r in want["rounds"]],
+           "records": len(want["records"]), "launches": launches, "differ": differ}
+    emit(out)
+    if differ:
+        raise AssertionError(f"serve_parity: the card's serve script != the CPU's in {differ}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1848,9 +2215,11 @@ def main() -> int:
     window = phase_warp_window()
     drain = phase_warp_drain()
     wfleet = phase_warp_fleet()
-    # The blocked tick, the fleet and the leaps run no kernel (as in the JAX
-    # package): their runs are counted, and launch 0, but no launch is
-    # required of them.
+    serve = phase_serve()
+    sparity = phase_serve_parity()
+    # The blocked tick, the fleet, the leaps and the serve step run no kernel
+    # (as in the JAX package): their runs are counted, and launch 0, but no
+    # launch is required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
@@ -1860,7 +2229,8 @@ def main() -> int:
             "warp_window_dense": window["launches_dense"],
             "warp_window_leap": window["launches_leap"],
             **{f"warp_drain_{k}": v for k, v in drain["launches"].items()},
-            "warp_fleet": wfleet["launches"]}
+            "warp_fleet": wfleet["launches"], "serve": serve["launches"],
+            "serve_parity": sparity["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

@@ -16,10 +16,12 @@ fleet       the dense tick over a leading ensemble axis
             leaves, full program only
 warp        the span program: k (near-)quiescent ticks as one batched pass
             (``make_warp_leap`` -> span.py)
+serve       the masked fleet converge chunk of a lane pool
+            (``make_serve_step``): the fleet tick with per-lane activity,
+            budgets and convergence freezes
 ==========  ==============================================================
 
-The JAX package's ``sharded``, ``serve`` and ``sparse`` engines are not
-ported yet.
+The JAX package's ``sharded`` and ``sparse`` engines are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,13 +29,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
+import torch
+
 from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.phasegraph.blocked import make_chunked_tick_fn
 from kaboodle_tpu_torch.phasegraph.exec import PALLAS_BATCH_ERROR, make_tick_fn
 from kaboodle_tpu_torch.phasegraph.span import make_leap_fn
 
 # The engines this module builds (the JAX package's names).
-ENGINES = ("dense", "fused", "chunked", "fleet", "warp")
+ENGINES = ("dense", "fused", "chunked", "fleet", "warp", "serve")
 
 
 def make_dense_tick(cfg: SwimConfig, faulty: bool = True, telemetry: bool = False) -> Callable:
@@ -84,3 +89,122 @@ def make_warp_leap(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool =
     anti-entropy); ``masked=True`` takes a per-member span length
     ``k_m <= k``, so one call advances an ensemble to per-member horizons."""
     return make_leap_fn(cfg, k, hybrid=hybrid, masked=masked)
+
+
+@dataclasses.dataclass
+class ServeStepOut:
+    """Per-lane outputs of one serve step chunk (all leaves ``[E]``).
+
+    ``conv_tick`` is the ticks-run count at the lane's FIRST observed
+    fingerprint agreement (``-1`` until then) -- for a converge-mode lane it
+    equals the ``ticks_run`` a standalone ``run_until_converged`` of the
+    same seed would report. ``counters`` is the chunk's per-lane
+    ``ProtocolCounters`` delta (``None`` unless the step was built with
+    ``telemetry=True``); frozen lanes contribute zero."""
+
+    remaining: torch.Tensor  # int32 [E] tick budget left
+    ticks_run: torch.Tensor  # int32 [E] ticks executed since admission
+    conv_tick: torch.Tensor  # int32 [E] ticks_run at first agreement, -1 before
+    done: torch.Tensor  # bool [E] lane finished (converged or budget exhausted)
+    messages: torch.Tensor  # int32 [E] unicasts delivered this chunk
+    counters: object | None = None  # ProtocolCounters with [E] leaves
+
+
+def make_serve_step(
+    cfg: SwimConfig,
+    chunk: int,
+    faulty: bool = False,
+    telemetry: bool = False,
+) -> Callable:
+    """The serving engine's resident program: a masked fleet converge chunk.
+
+    One call advances a whole lane pool up to ``chunk`` ticks: every lane
+    that is occupied (``active``), unfinished and within budget ticks in
+    lockstep through the fleet tick; everything else -- free lanes, freshly
+    converged converge-mode lanes, exhausted budgets -- freezes bit-exactly
+    via ``fleet.core.freeze_members``. Everything a request varies is data
+    (per-lane drop knob, activity masks, tick budgets, run counters), so
+    the serving loop calls this one program for every admission mix.
+
+    Per-lane semantics (``until_conv`` selects the request mode):
+
+    - converge mode (``until_conv[e]``): the lane freezes at the end-of-tick
+      state where its fingerprints first agree -- the ``run_until_converged``
+      contract, so a lane admitted mid-flight is bit-exact with the
+      standalone run of the same seed (with ``remaining`` as the
+      ``max_ticks`` bound).
+    - horizon mode (``~until_conv[e]``): the lane runs exactly its budget
+      (convergence observed and recorded, not a stop condition).
+
+    The JAX program's ``lax.while_loop`` (``any(~done) & (i < chunk)``) is a
+    Python loop here with one host fetch of ``any(~done)`` a tick, as in
+    ``fleet/core.py::fleet_converge_loop``; lanes sit at different ticks,
+    and the fleet tick reads each member's ``tick`` and draw keys on the
+    device. Like the fleet tick, the build is full-program-only and the
+    per-lane ``drop_rate`` knob is inert unless ``faulty=True``.
+    ``telemetry=True`` derives from the telemetry build of the fleet tick
+    and accumulates each lane's ``ProtocolCounters`` over the ticks it
+    actually advanced, in the counters' own dtype (``gossip_bytes`` mod
+    2^32), frozen ticks contributing zero.
+
+    Returns ``serve_step(mesh, drop_rate, active, until_conv, remaining,
+    ticks_run, conv_tick) -> (mesh, ServeStepOut)``; the vectors are
+    tensors or numpy arrays and the outputs tensors on the mesh's device.
+    """
+    from kaboodle_tpu_torch.fleet.core import fleet_idle_inputs, freeze_members
+    from kaboodle_tpu_torch.sim.runner import state_agreement
+    from kaboodle_tpu_torch.telemetry.counters import ProtocolCounters, add_counters
+
+    if chunk < 1:
+        raise ValueError("serve step chunk must be >= 1")
+    vtick = make_fleet_tick(cfg, faulty=faulty, telemetry=telemetry)
+
+    def serve_step(mesh, drop_rate, active, until_conv, remaining, ticks_run, conv_tick):
+        dev = mesh.state.device
+
+        def vec(x, dtype):
+            if not isinstance(x, torch.Tensor):
+                x = np.array(x)  # a writable host copy of the [E] vector
+            return torch.as_tensor(x, dtype=dtype).to(dev)
+
+        active, until_conv = vec(active, torch.bool), vec(until_conv, torch.bool)
+        remaining, ticks_run = vec(remaining, torch.int32), vec(ticks_run, torch.int32)
+        conv_tick = vec(conv_tick, torch.int32)
+        ensemble, n = active.shape[0], mesh.state.shape[-1]
+        idle = fleet_idle_inputs(n, ensemble, drop_rate=drop_rate, device=dev)
+        # Entry test, like the standalone converge loop: a converge-mode
+        # lane already at agreement freezes at once with conv_tick ==
+        # ticks_run (0 for a freshly admitted converged-init lane).
+        conv0 = state_agreement(mesh)[0]
+        conv_tick = torch.where(active & conv0 & (conv_tick < 0), ticks_run, conv_tick)
+        done = ~active | (until_conv & conv0) | (remaining <= 0)
+        messages = torch.zeros((ensemble,), dtype=torch.int32, device=dev)
+        ctr = None
+        if telemetry:
+            ctr = ProtocolCounters(**{
+                f.name: torch.zeros((ensemble,), dtype=torch.int32, device=dev)
+                for f in dataclasses.fields(ProtocolCounters)
+            })
+        i = 0
+        while i < chunk and bool((~done).any()):
+            new, out = vtick(mesh, idle)
+            m = out.metrics if telemetry else out
+            adv = ~done
+            mesh = freeze_members(adv, mesh, new)
+            ticks_run = torch.where(adv, ticks_run + 1, ticks_run)
+            remaining = torch.where(adv, remaining - 1, remaining)
+            messages = messages + torch.where(adv, m.messages_delivered, 0)
+            if telemetry:
+                ctr = add_counters(ctr, ProtocolCounters(**{
+                    f.name: torch.where(adv, getattr(out.counters, f.name), 0)
+                    for f in dataclasses.fields(ProtocolCounters)
+                }))
+            conv_now = adv & m.converged
+            conv_tick = torch.where(conv_now & (conv_tick < 0), ticks_run, conv_tick)
+            done = done | (until_conv & conv_now) | (remaining <= 0)
+            i += 1
+        return mesh, ServeStepOut(remaining=remaining, ticks_run=ticks_run,
+                                  conv_tick=conv_tick, done=done, messages=messages,
+                                  counters=ctr)
+
+    return serve_step

@@ -32,6 +32,22 @@ STREAM_TICK_BERN = 8  # dense tick: join-reply bernoulli matrix
 STREAM_TICK_DROP = 9  # dense tick: datagram drop uniform matrix
 
 
+def stream_table() -> dict[str, int]:
+    """Live ``{name: id}`` view of every ``STREAM_*`` constant, in id order.
+
+    Read off the module's attributes at call time, not a frozen copy, so a
+    renumbering shows up here as it would in the draws."""
+    import sys
+
+    mod = sys.modules[__name__]
+    table = {
+        name: getattr(mod, name)
+        for name in dir(mod)
+        if name.startswith("STREAM_") and isinstance(getattr(mod, name), int)
+    }
+    return dict(sorted(table.items(), key=lambda kv: (kv[1], kv[0])))
+
+
 def stream_key(seed: int, cursor: int, stream: int) -> threefry.Key:
     """Threefry key for one phase of one tick -- a pure function of the counters."""
     return threefry.fold_in(threefry.fold_in(threefry.prng_key(seed), cursor), stream)

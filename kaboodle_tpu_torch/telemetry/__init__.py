@@ -11,8 +11,11 @@
 - **Profiler labels** (:mod:`telemetry.trace`): ``host_span`` and
   ``op_scope``, ``kaboodle:`` ranges of ``torch.profiler.record_function``.
 
-The JAX package's exporters (``manifest``, ``summary``, the Chrome-trace
-writers of ``trace``) are not ported yet.
+- **Run manifests** (:mod:`telemetry.manifest`): the JAX package's JSONL
+  record schema (``kaboodle-telemetry/1``), writer, reader and validation.
+
+The JAX package's ``summary`` and the Chrome-trace writers of ``trace``
+are not ported yet.
 """
 
 from kaboodle_tpu_torch.telemetry.counters import (

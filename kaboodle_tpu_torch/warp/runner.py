@@ -258,6 +258,10 @@ class SpanMemo:
         self._kind_stats.clear()
 
 
+# The process-shared memo: serve lanes, fleet drains and one-mesh runs that
+# pass it trade deltas (``ServeEngine(warp_memo=True)`` adopts it).
+span_memo = SpanMemo()
+
 
 def _metrics_nbytes(metrics) -> int:
     return sum(getattr(m, f.name).numel() * getattr(m, f.name).element_size()
@@ -707,31 +711,45 @@ def memo_fleet_leap(family: str, mesh_state: MeshState, k_m: np.ndarray, memo: S
     call is all-or-nothing, so it is skipped only when every active member
     hits; on a partial hit the round still calls ``dispatch(mesh_state,
     k_m)`` once and banks the fresh members' deltas. Members at ``k_m == 0``
-    are untouched and never keyed. Returns ``(new_mesh_state, hit_members,
-    dispatched)``."""
-    host = _host_leaves(mesh_state)
-    active = [e for e in range(len(k_m)) if k_m[e] > 0]
+    are untouched and never keyed.
+
+    Only the members with ``k_m > 0`` cross to the host: their entry rows
+    are fetched and digested, the missed members' exit rows fetched after
+    the call, and on the all-hit path only their replayed rows are written
+    back (into a device copy of each leaf; the caller's tensors are never
+    written). Returns ``(new_mesh_state, hit_members, dispatched)``."""
+    k_m = np.asarray(k_m)
+    dev = mesh_state.device
+    active = [int(e) for e in np.flatnonzero(k_m > 0)]
+    k_dev = torch.as_tensor(k_m, dtype=torch.int32, device=dev)
+    if not active:
+        return dispatch(mesh_state, k_dev), 0, True
+    names = [f.name for f in dataclasses.fields(mesh_state)
+             if getattr(mesh_state, f.name) is not None]
+    rows = torch.as_tensor(active, dtype=torch.long, device=dev)
+    host = [getattr(mesh_state, name).index_select(0, rows).cpu().numpy() for name in names]
     keys: dict[int, tuple] = {}
     hits: dict[int, tuple] = {}
-    for e in active:
-        key = ("fleet", family, int(k_m[e]), _digest_leaves([h[e] for h in host]))
+    for i, e in enumerate(active):
+        key = ("fleet", family, int(k_m[e]), _digest_leaves([h[i] for h in host]))
         keys[e] = key
         hit = memo.get(key, kind="fleet")
         if hit is not None:
             hits[e] = hit
-    if active and len(hits) == len(active):
-        new_host = [h.copy() for h in host]
-        for e, (deltas, _) in hits.items():
-            for i, d in enumerate(deltas):
-                new_host[i][e] = _apply_xor(host[i][e], d)
-        return _from_host_leaves(mesh_state, new_host), len(hits), False
-    out = dispatch(mesh_state, torch.as_tensor(np.asarray(k_m), dtype=torch.int32,
-                                               device=mesh_state.device))
-    out_host = _host_leaves(out)
-    for e in active:
-        if e in hits:
-            continue
-        deltas = [_xor_delta(a[e], b[e]) for a, b in zip(host, out_host)]
+    if len(hits) == len(active):
+        new_state = {}
+        for j, name in enumerate(names):
+            rows_out = np.stack([_apply_xor(host[j][i], hits[e][0][j])
+                                 for i, e in enumerate(active)])
+            new_state[name] = getattr(mesh_state, name).index_copy(
+                0, rows, torch.as_tensor(rows_out, device=dev))
+        return dataclasses.replace(mesh_state, **new_state), len(hits), False
+    out = dispatch(mesh_state, k_dev)
+    fresh = [(i, e) for i, e in enumerate(active) if e not in hits]
+    fresh_rows = torch.as_tensor([e for _, e in fresh], dtype=torch.long, device=dev)
+    out_host = [getattr(out, name).index_select(0, fresh_rows).cpu().numpy() for name in names]
+    for r, (i, e) in enumerate(fresh):
+        deltas = [_xor_delta(a[i], b[r]) for a, b in zip(host, out_host)]
         memo.put(keys[e], (deltas, None), sum(d.nbytes for d in deltas))
     return out, len(hits), True
 

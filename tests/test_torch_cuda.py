@@ -403,3 +403,29 @@ def test_hybrid_leap_on_card_equals_dense(card, timer_dtype, det):
             else:
                 assert torch.equal(g, w), f.name
     assert bool((got.kpr_partner >= 0).any()), "anti-entropy never fired"
+
+
+def test_serve_on_card_equals_cpu(card, tmp_path):
+    """The serving slice's lifecycle script (``serve/dryrun.py::
+    parity_script``: converge boots, leaped steady runs, a kept request
+    spilled, restored and resumed, a cancel) on the card and on the CPU:
+    status rows, every record and the final pool equal, bit for bit."""
+    from kaboodle_tpu_torch.serve.dryrun import parity_script
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        root.mkdir()
+        res[dev] = parity_script(dev, str(root), n=32, lanes=4)
+    got, want = res["cuda"], res["cpu"]
+    assert got["status"] == want["status"]
+    assert got["records"] == want["records"]
+    assert {r["engine"] for r in want["rounds"]} >= {"chunk", "leap"}
+    assert np.array_equal(got["generation"], want["generation"])
+    for part in ("pool", "kept_member"):
+        for k, w in want[part].items():
+            g = got[part][k]
+            assert (w is None) == (g is None), k
+            if w is not None:
+                assert g.dtype == w.dtype and np.array_equal(
+                    g, w, equal_nan=bool(np.issubdtype(w.dtype, np.floating))), (part, k)

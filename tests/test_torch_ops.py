@@ -385,12 +385,20 @@ def test_package_imports_without_jax_or_reference_package():
                  "kaboodle_tpu_torch.fleet.stats", "kaboodle_tpu_torch.fleet.bench",
                  "kaboodle_tpu_torch.phasegraph.derive"}
         assert fleet <= set(names), fleet - set(names)
+        serve = {"kaboodle_tpu_torch.serve", "kaboodle_tpu_torch.serve.admission",
+                 "kaboodle_tpu_torch.serve.client", "kaboodle_tpu_torch.serve.dryrun",
+                 "kaboodle_tpu_torch.serve.engine", "kaboodle_tpu_torch.serve.journal",
+                 "kaboodle_tpu_torch.serve.obsplane", "kaboodle_tpu_torch.serve.pool",
+                 "kaboodle_tpu_torch.serve.server", "kaboodle_tpu_torch.serve.spill",
+                 "kaboodle_tpu_torch.analysis.conc.sanitizer",
+                 "kaboodle_tpu_torch.telemetry.manifest", "kaboodle_tpu_torch.profiling"}
+        assert serve <= set(names), serve - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parent.parent))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35
+    assert int(out.stdout.strip()) >= 56
 
 
 def test_entry_points_default_to_the_card():
