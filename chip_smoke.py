@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs twenty phases, each printing one JSON line; any failure raises and the
+runs twenty-five phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -133,11 +133,39 @@ script exits non-zero without the result line:
                chunk 4, the kept request's spill round trip included) on the
                card and on the CPU: status rows, records, ``serve_round``
                records and final pools bit-equal.
+21. oracle_parity -- the dense tick on the card, all four kernels on, held
+               tick by tick to the lockstep oracle (``oracle/lockstep.py``):
+               state codes, timers where a state exists, fingerprints of
+               alive rows, ``converged``, messages delivered. The N = 256
+               broadcast boot (share cap 16, lean state, int16 timers, 4
+               ticks), then a random-fault N = 128 run (random flags, full
+               state, 32 ticks) whose dense and blocked (block 64) telemetry
+               ticks also equal the oracle's counters field by field. K1, K2,
+               K3 and K4 must each launch.
+22. serve_load -- ``serve/loadgen.py`` in its default mode at class 1,024
+               (16 lanes, chunk 8, warp on): the warmup wave, 32 closed-loop
+               requests at concurrency 8, 32 open-loop at ``LOAD_RATE``;
+               nothing built in the steady phases, the results of 4 sampled
+               seeds (every request with that seed) equal to standalone runs.
+23. fed_serve -- two ``ServeServer``s (e0: 1,024 x 16 and 4,096 x 4; e1:
+               1,024 x 16) on one spill root and one journal root behind a
+               ``FedRouter``: fedload's open-loop level of 48 requests (every
+               4th of class 4,096, every 8th kept, resumed and cancelled),
+               then e1 killed mid-round (fedload's chaos at class 1,024). No
+               lost terminal, no request completed twice in a journal, the
+               request spilled on e1 adopted by e0 and resumed equal to its
+               standalone run, nothing built, sampled results equal to
+               standalone runs; then ``fedload --dryrun`` on the card.
+24. serve_chaos -- ``serve/chaos.py::run_chaos_dryrun`` on the card (the six
+               scenarios at N = 16/32, their own bars).
+25. serve_obs -- ``serve/obsdryrun.py::run_obs_dryrun`` on the card
+               (traced lifecycle, exporters, obs overhead at most 5 %).
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the facade at capacity 8,192, the checkpoint's
-resumed ticks, the two blocked runs, the two fleet runs, the warp runs and
-the two serve runs) and read just after: each kernel of the dense path
+resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
+the two serve runs, the oracle parity and the serve drivers) and read
+just after: each kernel of the dense path
 must have launched; the blocked tick, the fleet, the leaps and the serve
 step run no kernel (as in the JAX package, whose fleet refuses the Pallas
 flags and whose leap has no Pallas call), so their runs count 0 and none
@@ -1878,20 +1906,22 @@ def serve_requests() -> list:
                for s in range(4)])
 
 
-def serve_reference(cfg, n: int, seed: int, mode: str, ticks: int, extra: int = 0):
+def serve_reference(cfg, n: int, seed: int, mode: str, ticks: int, extra: int = 0,
+                    device="cuda"):
     """The standalone run a harvest must equal: ``run_until_converged``
     (converge mode, then ``extra`` dense ticks) or ``ticks`` dense ticks
     from the steady init (ticks mode). Returns ``(state, conv_tick)``."""
     from kaboodle_tpu_torch.sim import idle_inputs, init_state, make_tick_fn, run_until_converged
     from kaboodle_tpu_torch.sim.runner import state_converged
 
-    tick, idle = make_tick_fn(cfg, faulty=False), idle_inputs(n)
+    tick, idle = make_tick_fn(cfg, faulty=False), idle_inputs(n, device=device)
     if mode == "converge":
-        st, ran, _ = run_until_converged(init_state(n, seed=seed), cfg, max_ticks=ticks)
+        st, ran, _ = run_until_converged(init_state(n, seed=seed, device=device), cfg,
+                                         max_ticks=ticks)
         conv = ran
         steps = extra
     else:
-        st = init_state(n, seed=seed, ring_contacts=n - 1, announced=True)
+        st = init_state(n, seed=seed, ring_contacts=n - 1, announced=True, device=device)
         conv = 0 if state_converged(st) else -1
         steps = ticks
     for t in range(steps):
@@ -2060,8 +2090,6 @@ def phase_serve() -> dict:
 
     import numpy as np
 
-    from kaboodle_tpu_torch.sim.runner import state_agreement
-
     release_device_memory()
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         res = asyncio.run(serve_exercise(Path(d)))
@@ -2082,26 +2110,16 @@ def phase_serve() -> dict:
         if not got:
             raise AssertionError(f"serve: no harvest captured for {key}")
         rec, member = got[-1]
+        mode = mode_of(seed)
         if key == serve_keep():
-            ref, conv = serve_reference(cfg, n, seed, "converge", 64, extra=SERVE_RESUME_TICKS)
+            want, ref = standalone_want(cfg, n, seed, mode, 64, extra=SERVE_RESUME_TICKS)
         else:
-            mode = mode_of(seed)
-            ticks = 64 if mode == "converge" else serve_ticks(n)
-            ref, conv = serve_reference(cfg, n, seed, mode, ticks)
-        conv_ok, fp_min, fp_max, n_alive = state_agreement(ref)
-        want = {"conv_tick": conv, "converged": bool(conv_ok),
-                "fp_min": int(fp_min) & 0xFFFFFFFF, "fp_max": int(fp_max) & 0xFFFFFFFF,
-                "n_alive": int(n_alive), "ticks_run": int(ref.tick)}
-        if mode_of(seed) == "ticks" and rec["conv_tick"] == -1:
-            # A ticks-mode lane that only ever leaped never had its entry
-            # agreement observed (the leap round does not test it, in the
-            # JAX engine too): -1 is the served value then.
-            want["conv_tick"] = -1
-        have = {k: rec[k] for k in want}
+            want, ref = standalone_want(cfg, n, seed, mode,
+                                        64 if mode == "converge" else serve_ticks(n))
         diff = state_diff(member, ref)
         checks.append({"class": n, "seed": seed, "event": rec["event"],
                        "ticks_run": rec["ticks_run"], "conv_tick": rec["conv_tick"],
-                       "stats_equal": have == want, "state_diff": diff})
+                       "stats_equal": result_matches(rec, want, mode), "state_diff": diff})
         del ref, member
     lat = np.sort(np.asarray(res["lat"]))
     rounds: dict = {}
@@ -2174,6 +2192,466 @@ def phase_serve_parity() -> dict:
     return out
 
 
+# ------------------------------------------------------------- oracle parity
+
+# The dense tick on the card held to the lockstep oracle (oracle/lockstep.py),
+# tick by tick, all kernels on: (a) the N = 256 broadcast boot with an
+# active share cap, lean state and int16 timers (K2, K3, K4); (b) a
+# random-fault run at N = 128, full state (K1, K3, K4), telemetry build,
+# the counters of the dense and the blocked tick against the oracle's.
+ORACLE_BOOT_N, ORACLE_BOOT_TICKS, ORACLE_SHARE_CAP = 256, 4, 16
+ORACLE_FAULT_N, ORACLE_FAULT_TICKS, ORACLE_BLOCK = 128, 32, 64
+ORACLE_SEED = 1010
+ORACLE_KERNELS = ("fused_fp_idv", "fused_fp_hash", "fused_suspicion", "fused_oldest_k")
+
+
+def oracle_fault_plan(rng, n: int, ticks: int) -> list[dict]:
+    """Random per-tick faults, drawn as ``tests/test_fuzz_parity.py::
+    _random_inputs`` draws them: kills, revives, a two-group partition now
+    and then, a fixed drop mask (exact, unlike a rate), manual pings."""
+    import numpy as np
+
+    plan = []
+    for _ in range(ticks):
+        kill = rng.random(n) < 0.06
+        revive = (rng.random(n) < 0.06) & ~kill
+        part = ((np.arange(n) % 2).astype(np.int32) if rng.random() < 0.2
+                else np.zeros(n, np.int32))
+        drop_ok = rng.random((n, n)) >= rng.choice([0.0, 0.0, 0.15])
+        manual = np.where(rng.random(n) < 0.08, rng.integers(0, n, n), -1).astype(np.int32)
+        plan.append({"kill": kill, "revive": revive, "partition": part,
+                     "drop_ok": drop_ok, "manual_target": manual})
+    return plan
+
+
+def oracle_inputs(n: int, faults: dict | None, device):
+    """One tick's ``TickInputs`` from a plan entry (``None``: no fault)."""
+    import numpy as np
+
+    from kaboodle_tpu_torch.sim.state import idle_inputs, inputs_from_numpy
+
+    if faults is None:
+        return idle_inputs(n, device=device)
+    return inputs_from_numpy({**faults, "drop_rate": np.float32(0.0)}, device=device)
+
+
+def oracle_tick(mesh, faults: dict | None) -> None:
+    """Apply a plan entry to the oracle mesh and run its tick."""
+    import numpy as np
+
+    if faults is not None:
+        for p in np.nonzero(faults["kill"])[0]:
+            mesh.kill(int(p))
+        for p in np.nonzero(faults["revive"])[0]:
+            mesh.revive(int(p))
+        for p in np.nonzero(faults["manual_target"] >= 0)[0]:
+            mesh.engines[p].pending_manual_pings.append(int(faults["manual_target"][p]))
+        dok, part = faults["drop_ok"], faults["partition"]
+        mesh.delivery_ok = lambda s, r, t: bool(dok[s, r] and part[s] == part[r])
+    mesh.tick()
+
+
+def oracle_diff(mesh, st, metrics) -> list[str]:
+    """Where the tick's state and metrics differ from the oracle's, as
+    ``tests/test_kernel_parity.py::_assert_tick_equal`` compares them: the
+    state codes, the timers where a state exists, the fingerprints of alive
+    rows, ``converged`` and ``messages_delivered``."""
+    import numpy as np
+
+    from kaboodle_tpu_torch.ops.hashing import membership_fingerprint
+
+    bad = []
+    S = st.state.cpu().numpy()
+    want_s = mesh.state_matrix()
+    if not np.array_equal(S, want_s):
+        bad.append("state")
+    if not np.array_equal(st.timer.cpu().numpy() * (S > 0),
+                          mesh.timer_matrix() * (want_s > 0)):
+        bad.append("timer")
+    alive = st.alive.cpu().numpy()
+    fp = membership_fingerprint(st.state > 0, st.identity).cpu().numpy().view(np.uint32)
+    want_fp = (np.array(mesh.fingerprints(), dtype=np.uint64) & 0xFFFFFFFF).astype(np.uint32)
+    if not np.array_equal(fp[alive], want_fp[alive]):
+        bad.append("fingerprint")
+    if bool(metrics.converged) != mesh.converged():
+        bad.append("converged")
+    if int(metrics.messages_delivered) != mesh.last_tick_messages:
+        bad.append("messages_delivered")
+    return bad
+
+
+def oracle_counter_diff(mesh, counters) -> list[str]:
+    """The ``ProtocolCounters`` fields that differ from the oracle's tallies."""
+    return [k for k, want in mesh.last_tick_counters.items()
+            if int(getattr(counters, k)) != want]
+
+
+def oracle_fault_cfg(rng):
+    """Random protocol flags (``tests/test_fuzz_parity.py::_random_cfg``),
+    deterministic mode, every kernel flag on."""
+    from kaboodle_tpu_torch.config import SwimConfig
+
+    return SwimConfig(
+        deterministic=True,
+        join_broadcast_enabled=bool(rng.integers(2)),
+        backdate_gossip_inserts=bool(rng.integers(2)),
+        faithful_failed_broadcast=bool(rng.integers(2)),
+        faithful_indirect_ack=bool(rng.integers(2)),
+        max_share_peers=int(rng.choice([0, 6, 300])),
+        use_pallas_fp=True, use_pallas_oldest_k=True, use_pallas_suspicion=True,
+    )
+
+
+def phase_oracle_parity(device="cuda") -> dict:
+    """The card's dense tick with all four kernels against the lockstep
+    oracle, tick by tick: the N = 256 broadcast boot (lean, int16) and a
+    random-fault N = 128 run whose dense and blocked telemetry ticks also
+    match the oracle's counters field by field."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.oracle import LockstepMesh
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sim import init_state, make_chunked_tick_fn, make_tick_fn
+
+    t_start = time.perf_counter()
+    _cuda.reset_launches()
+    tick_s = 0.0
+
+    # (a) the broadcast boot with the share cap below N (D5 at scale).
+    n = ORACLE_BOOT_N
+    cfg = SwimConfig(deterministic=True, max_share_peers=ORACLE_SHARE_CAP, use_pallas_fp=True,
+                     use_pallas_oldest_k=True, use_pallas_suspicion=True)
+    mesh = LockstepMesh(n, cfg)
+    st = init_state(n, instant_identity=True, timer_dtype=torch.int16, device=device)
+    tick = make_tick_fn(cfg, faulty=False)
+    idle = oracle_inputs(n, None, device)
+    for t in range(ORACLE_BOOT_TICKS):
+        oracle_tick(mesh, None)
+        t0 = time.perf_counter()
+        st, m = tick(st, idle)
+        tick_s += time.perf_counter() - t0
+        bad = oracle_diff(mesh, st, m)
+        if bad:
+            raise AssertionError(f"oracle_parity boot: tick {t} differs in {bad}")
+    boot_launches = counts()
+    boot = {"n": n, "ticks": ORACLE_BOOT_TICKS, "share_cap": ORACLE_SHARE_CAP,
+            "converged": mesh.converged(), "launches": boot_launches}
+
+    # (b) random faults, full state, dense and blocked telemetry ticks.
+    rng = np.random.default_rng(ORACLE_SEED)
+    n = ORACLE_FAULT_N
+    cfg = oracle_fault_cfg(rng)
+    ring = 0 if cfg.join_broadcast_enabled else 2
+    mesh = LockstepMesh(n, cfg, seed=ORACLE_SEED, ring_contacts=ring)
+    sd = sc = init_state(n, seed=ORACLE_SEED, ring_contacts=ring, device=device)
+    dense = make_tick_fn(cfg, faulty=True, telemetry=True)
+    blocked = make_chunked_tick_fn(cfg, faulty=True, block=ORACLE_BLOCK, telemetry=True)
+    events = {k: 0 for k in ("kills", "revives", "partitioned_ticks", "manual_pings")}
+    for t, faults in enumerate(oracle_fault_plan(rng, n, ORACLE_FAULT_TICKS)):
+        events["kills"] += int(faults["kill"].sum())
+        events["revives"] += int(faults["revive"].sum())
+        events["partitioned_ticks"] += int(faults["partition"].any())
+        events["manual_pings"] += int((faults["manual_target"] >= 0).sum())
+        oracle_tick(mesh, faults)
+        inp = oracle_inputs(n, faults, device)
+        t0 = time.perf_counter()
+        sd, out_d = dense(sd, inp)
+        tick_s += time.perf_counter() - t0
+        sc, out_c = blocked(sc, inp)
+        for side, s, out in (("dense", sd, out_d), ("blocked", sc, out_c)):
+            bad = oracle_diff(mesh, s, out.metrics) + [
+                f"counters.{k}" for k in oracle_counter_diff(mesh, out.counters)]
+            if bad:
+                raise AssertionError(f"oracle_parity faults: {side} tick {t} differs in {bad}")
+    launches = counts()
+    fault = {"n": n, "ticks": ORACLE_FAULT_TICKS, "block": ORACLE_BLOCK,
+             "cfg": {k: getattr(cfg, k) for k in (
+                 "join_broadcast_enabled", "backdate_gossip_inserts",
+                 "faithful_failed_broadcast", "faithful_indirect_ack", "max_share_peers")},
+             "ring_contacts": ring, "events": events,
+             "launches": {k: launches[k] - boot_launches[k] for k in launches}}
+    out = {"phase": "oracle_parity", "boot": boot, "faults": fault,
+           "card_tick_s": tick_s, "wall_s": time.perf_counter() - t_start,
+           "launches": launches}
+    emit(out)
+    require_launches("oracle_parity", launches, ORACLE_KERNELS)
+    return out
+
+
+# ----------------------------------------------------------- serve drivers
+
+# ``serve/loadgen.py`` in its default mode on the card at config 2's class.
+LOAD_LANES, LOAD_CHUNK, LOAD_REQUESTS, LOAD_CONCURRENCY = 16, 8, 32, 8
+# The open-loop rate: half the closed-loop throughput measured at these
+# sizes on an NVIDIA H100 80GB HBM3 at 700 W (29.97 requests/s).
+LOAD_RATE = 15.0
+LOAD_SAMPLES = (0, 1, 6, 7)  # mix indices = seeds: two boots, two steady runs
+# The federation: e0 serves both classes, e1 only the small one.
+FED_CLASSES = (SERVE_SMALL, SERVE_LARGE)
+FED_LANES = ((16, 4), (16,))
+# The level's open-loop rate: the single-engine rate above, so two engines
+# take it with room to spare.
+FED_REQUESTS, FED_RATE = 48, LOAD_RATE
+FED_SAMPLES = (0, 1, 2, 3)  # mix indices: both classes, both modes
+
+
+def standalone_want(cfg, n: int, seed: int, mode: str, ticks: int, extra: int = 0,
+                    device="cuda"):
+    """The harvest fields a served request must carry, from its standalone
+    run (``serve_reference``), and that run's final state."""
+    from kaboodle_tpu_torch.sim.runner import state_agreement
+
+    ref, conv = serve_reference(cfg, n, seed, mode, ticks, extra=extra, device=device)
+    conv_ok, fp_min, fp_max, n_alive = state_agreement(ref)
+    want = {"conv_tick": conv, "converged": bool(conv_ok),
+            "fp_min": int(fp_min) & 0xFFFFFFFF, "fp_max": int(fp_max) & 0xFFFFFFFF,
+            "n_alive": int(n_alive), "ticks_run": int(ref.tick)}
+    return want, ref
+
+
+def result_matches(result: dict, want: dict, mode: str) -> bool:
+    """``result`` carries ``want``'s fields. A ticks-mode lane that only
+    ever leaped never had its entry agreement observed (the leap round does
+    not test it, in the JAX engine too): its ``conv_tick`` is -1 then."""
+    if mode == "ticks" and result["conv_tick"] == -1:
+        want = {**want, "conv_tick": -1}
+    return {k: result[k] for k in want} == want
+
+
+def phase_serve_load(device="cuda", n=SERVE_SMALL) -> dict:
+    """``serve/loadgen.py`` default mode (warmup wave, closed loop, open
+    loop) through the TCP server on the card: nothing built in the steady
+    phases, every sampled request's result equal to its standalone run."""
+    import asyncio
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.serve import loadgen
+
+    release_device_memory()
+    args = loadgen.parse_args(["--n", str(n), "--lanes", str(LOAD_LANES),
+                               "--chunk", str(LOAD_CHUNK), "--requests", str(LOAD_REQUESTS),
+                               "--concurrency", str(LOAD_CONCURRENCY),
+                               "--rate", str(LOAD_RATE), "--device", str(device)])
+    rows: list = []
+    report, wall, launches = timed(lambda: asyncio.run(loadgen._run(args, rows=rows)))
+    cfg = SwimConfig(deterministic=True)
+    checks = []
+    for i in LOAD_SAMPLES:
+        fields = loadgen._mix_fields(i)
+        want, _ = standalone_want(cfg, n, fields["seed"], fields["mode"], fields["ticks"],
+                                  device=device)
+        mine = [r for r in rows if r["seed"] == fields["seed"]]
+        checks.append({"seed": fields["seed"], "mode": fields["mode"], "served": len(mine),
+                       "equal": bool(mine) and all(
+                           result_matches(r["result"], want, fields["mode"]) for r in mine)})
+    out = {"phase": "serve_load", "n": n, "lanes": LOAD_LANES, "chunk": LOAD_CHUNK,
+           "requests_per_phase": LOAD_REQUESTS, "concurrency": LOAD_CONCURRENCY,
+           "rate": LOAD_RATE, "wall_s": wall, "report": report, "samples": checks,
+           "launches": launches}
+    emit(out)
+    if report["compiles_steady"] != 0:
+        raise AssertionError(f"serve_load: {report['compiles_steady']} programs built "
+                             "in the steady phases")
+    bad = [c for c in checks if not c["equal"]]
+    if bad:
+        raise AssertionError(f"serve_load: results != standalone runs: {bad}")
+    return out
+
+
+async def fed_exercise(tmp: Path, device, classes, lanes) -> dict:
+    """Two servers and the router on loopback: the open-loop level with its
+    churn, then e1 killed mid-round; everything the phase checks."""
+    from kaboodle_tpu_torch.analysis.ir.surface import assert_counter_live, compile_counter
+    from kaboodle_tpu_torch.serve.client import ServeClient
+    from kaboodle_tpu_torch.serve.engine import ServeEngine
+    from kaboodle_tpu_torch.serve.federation import fedload
+    from kaboodle_tpu_torch.serve.federation.router import EngineMember, FedRouter
+    from kaboodle_tpu_torch.serve.pool import LanePool
+    from kaboodle_tpu_torch.serve.server import ServeServer
+
+    assert_counter_live()
+    spill_root, journal_root = str(tmp / "spill"), str(tmp / "journal")
+    engines, terminals = [], {}
+    for eid, pool_lanes in zip(("e0", "e1"), lanes):
+        engine = ServeEngine(
+            [LanePool(n, k, chunk=8, device=device) for n, k in zip(classes, pool_lanes)],
+            warp=True, max_leap=64, spill_after=2, spill_dir=spill_root,
+            journal_dir=journal_root, engine_id=eid)
+        # Keep every record in the WAL: the phase counts completions there.
+        engine.journal.compact_every = 1 << 30
+        engines.append(engine)
+    t0 = time.perf_counter()
+    for engine in engines:
+        engine.warmup()
+    warm_s = time.perf_counter() - t0
+    servers = [ServeServer(e, port=0) for e in engines]
+    for srv in servers:
+        await srv.start()
+    router = FedRouter([EngineMember(e.engine_id, "127.0.0.1", s.port)
+                        for e, s in zip(engines, servers)],
+                       journal_root=journal_root, spill_root=spill_root, port=0)
+    await router.start()
+
+    async def client_factory():
+        return await ServeClient.connect(port=router.port)
+
+    # Warm wave (uncounted): both classes and modes through the router.
+    warm = await client_factory()
+    for i in range(4):
+        await warm.wait(await warm.submit(fedload._class_of(i, classes),
+                                          **fedload._mix_fields(i)))
+    await warm.close()
+    rows, adopted = {}, {}
+    t1 = time.perf_counter()
+    with compile_counter() as box:
+        submit_client = await client_factory()
+        lat, level_s = await fedload._open_level(client_factory, submit_client, FED_REQUESTS,
+                                                 FED_RATE, classes=classes, rows=rows)
+        await submit_client.close()
+        chaos = await fedload._chaos(client_factory, servers[1].kill, "e1", n=classes[0],
+                                     adopted=adopted)
+    wall = time.perf_counter() - t1
+    probe = await client_factory()
+    stats = await probe.stats()
+    await probe.close()
+    await router.close()
+    await servers[0].close()
+    engines[1].close()  # e1's server was killed, not closed
+    from kaboodle_tpu_torch.serve.journal import read_journal_records
+
+    for eid in ("e0", "e1"):
+        terminals[eid] = read_journal_records(str(Path(journal_root) / eid))
+    return {"warm_s": warm_s, "wall": wall, "level_s": level_s, "lat": lat, "rows": rows,
+            "adopted": adopted, "chaos": chaos, "compiles": box.count, "journals": terminals,
+            "routes": stats["routes"], "alive": stats["alive"]}
+
+
+def journal_completions(records: list) -> dict:
+    """Per rid of one journal: ``(harvests, resumes)``."""
+    per: dict = {}
+    for rec in records:
+        h, r = per.get(rec["rid"], (0, 0))
+        per[rec["rid"]] = (h + (rec["op"] == "harvested"), r + (rec["op"] == "resumed"))
+    return per
+
+
+def phase_fed_serve(device="cuda", classes=FED_CLASSES, lanes=FED_LANES) -> dict:
+    """Two port ``ServeServer``s behind a ``FedRouter`` on the card: the
+    open-loop level (every 4th request of the class only e0 serves, every
+    8th kept and taken through park, resume and cancel), then e1 killed
+    mid-round. No lost terminal, one completion per request in each
+    journal, the request spilled on e1 adopted by e0 and resumed equal to
+    its standalone run, nothing built, sampled results equal to standalone
+    runs; then ``fedload --dryrun`` on the card."""
+    import asyncio
+    import contextlib
+    import io
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.serve.federation import fedload
+
+    release_device_memory()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        res, _, launches = timed(lambda: asyncio.run(fed_exercise(Path(d), device, classes, lanes)))
+    cfg = SwimConfig(deterministic=True)
+    checks = []
+    for i in FED_SAMPLES:
+        fields = fedload._mix_fields(i)
+        n = fedload._class_of(i, classes)
+        want, _ = standalone_want(cfg, n, fields["seed"], fields["mode"], fields["ticks"],
+                                  device=device)
+        row = res["rows"].get(i)
+        checks.append({"class": n, "seed": fields["seed"], "mode": fields["mode"],
+                       "engine": row and row.get("engine"),
+                       "equal": bool(row) and result_matches(row["result"], want,
+                                                             fields["mode"])})
+    kept = res["adopted"]
+    # fedload's chaos runs the kept request 6 ticks, then resumes it for 4.
+    want_adopted, _ = standalone_want(cfg, classes[0], kept["seed"], "ticks", 10,
+                                      device=device)
+    dup = {}
+    for eid, recs in res["journals"].items():
+        for rid, (h, r) in journal_completions(recs).items():
+            if h > 1 + r:
+                dup[f"{eid}:{rid}"] = (h, r)
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fedload.main(["--dryrun", "--device", str(device)])
+    dry = json.loads(buf.getvalue().strip().splitlines()[-1])
+    dry_s, dry_launches = time.perf_counter() - t0, counts()
+    out = {"phase": "fed_serve", "classes": list(classes), "lanes": [list(x) for x in lanes],
+           "requests": FED_REQUESTS, "rate": FED_RATE, "warmup_s": res["warm_s"],
+           "wall_s": res["wall"], "level_s": res["level_s"],
+           "latency_by_class": {str(k): fedload._latency_stats(v)
+                                for k, v in res["lat"].items() if v},
+           "chaos": res["chaos"], "routes": res["routes"], "alive": res["alive"],
+           "compiles_steady": res["compiles"], "samples": checks,
+           "adopted": {"seed": kept["seed"], "engine": kept.get("engine"),
+                       "ticks_run": kept["result"]["ticks_run"],
+                       "equal": result_matches(kept["result"], want_adopted, "ticks")},
+           "journal_records": {k: len(v) for k, v in res["journals"].items()},
+           "journal_duplicates": dup, "launches": launches,
+           "dryrun": {"rc": rc, "wall_s": dry_s, "report": dry, "launches": dry_launches}}
+    emit(out)
+    if res["compiles"] != 0:
+        raise AssertionError(f"fed_serve: {res['compiles']} programs built in the steady phase")
+    if res["chaos"]["lost_terminals"] or res["chaos"]["failovers"] != 1:
+        raise AssertionError(f"fed_serve: chaos accounting {res['chaos']}")
+    if dup:
+        raise AssertionError(f"fed_serve: requests completed twice in a journal: {dup}")
+    if not all(c["equal"] for c in checks) or not out["adopted"]["equal"]:
+        raise AssertionError(f"fed_serve: results != standalone runs: {checks}, "
+                             f"adopted {out['adopted']}")
+    if kept.get("engine") != "e0":
+        raise AssertionError(f"fed_serve: the spilled request resumed on {kept.get('engine')}")
+    if rc != 0 or dry.get("fedserve_dryrun") != "ok" or dry["compiles_steady"] != 0:
+        raise AssertionError(f"fed_serve: fedload --dryrun failed: {dry}")
+    return out
+
+
+def last_json_line(fn, *args, **kw) -> tuple[int, dict, float, dict]:
+    """Run a lane that prints its JSON report last: ``(rc, report, wall,
+    launches)``, its other output dropped."""
+    import contextlib
+    import io
+
+    from kaboodle_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    wall = time.perf_counter() - t0
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1]), wall, counts()
+
+
+def phase_serve_chaos_obs(device="cuda") -> tuple[dict, dict]:
+    """``run_chaos_dryrun`` and ``run_obs_dryrun`` on the card at the JAX
+    sizes (N = 16/32): each asserts its own bars (spill round latency
+    within 10 % of no-spill plus the floor, obs overhead at most 5 %,
+    nothing built)."""
+    from kaboodle_tpu_torch.serve.chaos import run_chaos_dryrun
+    from kaboodle_tpu_torch.serve.obsdryrun import run_obs_dryrun
+
+    release_device_memory()
+    outs = []
+    for name, fn in (("serve_chaos", run_chaos_dryrun), ("serve_obs", run_obs_dryrun)):
+        rc, report, wall, launches = last_json_line(fn, device=device)
+        out = {"phase": name, "rc": rc, "wall_s": wall, "report": report,
+               "launches": launches}
+        emit(out)
+        if rc != 0 or not report.get("ok"):
+            raise AssertionError(f"{name}: the lane failed: {report}")
+        outs.append(out)
+    return tuple(outs)
+
+
 def main() -> int:
     import torch
 
@@ -2217,9 +2695,13 @@ def main() -> int:
     wfleet = phase_warp_fleet()
     serve = phase_serve()
     sparity = phase_serve_parity()
+    oracle = phase_oracle_parity()
+    sload = phase_serve_load()
+    fed = phase_fed_serve()
+    schaos, sobs = phase_serve_chaos_obs()
     # The blocked tick, the fleet, the leaps and the serve step run no kernel
-    # (as in the JAX package): their runs are counted, and launch 0, but no
-    # launch is required of them.
+    # (as in the JAX package): their runs (the serve drivers' too) are
+    # counted, and launch 0, but no launch is required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
@@ -2230,7 +2712,10 @@ def main() -> int:
             "warp_window_leap": window["launches_leap"],
             **{f"warp_drain_{k}": v for k, v in drain["launches"].items()},
             "warp_fleet": wfleet["launches"], "serve": serve["launches"],
-            "serve_parity": sparity["launches"]}
+            "serve_parity": sparity["launches"], "oracle_parity": oracle["launches"],
+            "serve_load": sload["launches"], "fed_serve": fed["launches"],
+            "fed_serve_dryrun": fed["dryrun"]["launches"],
+            "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

@@ -22,9 +22,14 @@ Layers:
                  schema-checked manifest, no program built after warmup.
 - admission.py, journal.py, spill.py, obsplane.py — policy, write-ahead
                  log, background spill I/O, observability.
+- loadgen.py   — the closed+open-loop load driver (``--overload``,
+                 ``--slo``) over an in-process server.
+- federation/  — the consistent-hash ring, the router in front of many
+                 engines (journal failover, spill adoption) and the
+                 two-engine load driver with its kill-one-engine chaos.
+- chaos.py, obsdryrun.py — the fault-injection and observability lanes.
 
-The JAX package's ``shardpool.py`` (multi-device), ``federation/``,
-``loadgen.py``, ``chaos.py`` and ``obsdryrun.py`` are not ported yet.
+The JAX package's ``shardpool.py`` (multi-device) is not ported yet.
 """
 
 from kaboodle_tpu_torch.serve.engine import ServeEngine, ServeRequest

@@ -406,9 +406,10 @@ class ServeServer:
 def main(argv=None) -> int:
     """``python -m kaboodle_tpu_torch.serve.server`` — run the service.
 
-    The JAX CLI's engine options plus ``--device``; its ``--chaos-dryrun``,
-    ``--obs-dryrun``, ``--federated`` and ``--members`` (and the federation
-    roots) are not offered: those modules are not ported."""
+    The JAX CLI's options plus ``--device``: an engine, the federation
+    router in front of member engines (``--federated --members ...``), or
+    one of the in-process lanes (``--dryrun``, ``--chaos-dryrun``,
+    ``--obs-dryrun``)."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -458,6 +459,23 @@ def main(argv=None) -> int:
                         help="engine identity: namespaces spill and journal "
                              "paths one level down and stamps every "
                              "checkpoint, so engines can share roots")
+    parser.add_argument("--federated", action="store_true",
+                        help="run the federation ROUTER instead of an "
+                             "engine (needs --members; optional "
+                             "--journal-root enables WAL failover)")
+    parser.add_argument("--members", default=None,
+                        help="federation members as id=host:port,... "
+                             "(each id must match that engine's "
+                             "--engine-id)")
+    parser.add_argument("--journal-root", default=None,
+                        help="the members' SHARED --journal-dir root, for "
+                             "failover replay")
+    parser.add_argument("--spill-root", default=None,
+                        help="the members' SHARED --spill-dir root (spill "
+                             "files must be reachable for adoption)")
+    parser.add_argument("--vnodes", type=int, default=64,
+                        help="virtual nodes per member on the placement "
+                             "ring")
     parser.add_argument("--recover", action="store_true",
                         help="replay --journal-dir before serving: re-queue "
                              "lost requests, re-attach spilled ones")
@@ -472,12 +490,58 @@ def main(argv=None) -> int:
                              "(0 = ephemeral; implies --obs)")
     parser.add_argument("--dryrun", action="store_true",
                         help="run the in-process CI exercise and exit")
+    parser.add_argument("--chaos-dryrun", action="store_true",
+                        help="run the seeded fault-injection scenarios and "
+                             "exit")
+    parser.add_argument("--obs-dryrun", action="store_true",
+                        help="run the observability-plane exercise "
+                             "(traced lifecycle, metrics, report, trace "
+                             "export, overhead A/B) and exit")
     args = parser.parse_args(argv)
 
     if args.dryrun:
         from kaboodle_tpu_torch.serve.dryrun import run_dryrun
 
         return run_dryrun(device=args.device)
+    if args.chaos_dryrun:
+        from kaboodle_tpu_torch.serve.chaos import run_chaos_dryrun
+
+        return run_chaos_dryrun(device=args.device)
+    if args.obs_dryrun:
+        from kaboodle_tpu_torch.serve.obsdryrun import run_obs_dryrun
+
+        return run_obs_dryrun(device=args.device)
+
+    if args.federated:
+        if not args.members:
+            parser.error("--federated needs --members id=host:port,...")
+        from kaboodle_tpu_torch.serve.federation.router import (
+            FedRouter,
+            parse_members,
+        )
+
+        async def run_router() -> None:
+            router = FedRouter(
+                parse_members(args.members), host=args.host, port=args.port,
+                journal_root=args.journal_root, spill_root=args.spill_root,
+                vnodes=args.vnodes, metrics_port=args.metrics_port,
+            )
+            await router.start()
+            print(f"federation router on {router.host}:{router.port} "
+                  f"(members {sorted(router.alive)})", flush=True)
+            if router.metrics_port is not None:
+                print(f"metrics on http://{router.host}:"
+                      f"{router.metrics_port}/metrics", flush=True)
+            try:
+                await router.serve_forever()
+            finally:
+                await router.close()
+
+        try:
+            asyncio.run(run_router())
+        except KeyboardInterrupt:
+            pass
+        return 0
 
     from kaboodle_tpu_torch.serve.pool import LanePool, lane_n_class
 

@@ -8,14 +8,15 @@
   the device holding the last K ticks' counters and per-member fingerprint
   digests, fetched to the host once by :func:`recorder_rows`.
 
-- **Profiler labels** (:mod:`telemetry.trace`): ``host_span`` and
-  ``op_scope``, ``kaboodle:`` ranges of ``torch.profiler.record_function``.
+- **Profiler labels and trace export** (:mod:`telemetry.trace`):
+  ``host_span`` and ``op_scope``, ``kaboodle:`` ranges of
+  ``torch.profiler.record_function``; the Chrome-trace writers of the
+  tick timeline, the phase passes, the serve spans and the journal.
 
 - **Run manifests** (:mod:`telemetry.manifest`): the JAX package's JSONL
-  record schema (``kaboodle-telemetry/1``), writer, reader and validation.
-
-The JAX package's ``summary`` and the Chrome-trace writers of ``trace``
-are not ported yet.
+  record schema (``kaboodle-telemetry/1``), writer, reader and validation;
+  :mod:`telemetry.summary` summarizes, gates (``--check``), reports
+  (``--serve-report``) and exports (``--trace``) them.
 """
 
 from kaboodle_tpu_torch.telemetry.counters import (

@@ -16,9 +16,9 @@ they all need — a stream of schema-tagged records:
 
 ``kind`` values are open (lanes add their own), but every record carries
 the schema tag and every ``tick`` record carries a ``tick`` index, so the
-summarizer (``python -m kaboodle_tpu telemetry``) and the Chrome-trace
-exporter can consume any lane's manifest. Writers are stdlib-only and
-host-side.
+summarizer (``python -m kaboodle_tpu_torch.telemetry.summary``) and the
+Chrome-trace exporter can consume any lane's manifest. Writers are
+stdlib-only and host-side.
 """
 
 from __future__ import annotations

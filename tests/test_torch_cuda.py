@@ -429,3 +429,31 @@ def test_serve_on_card_equals_cpu(card, tmp_path):
             if w is not None:
                 assert g.dtype == w.dtype and np.array_equal(
                     g, w, equal_nan=bool(np.issubdtype(w.dtype, np.floating))), (part, k)
+
+
+def test_oracle_parity_on_card(card):
+    """``chip_smoke.py``'s oracle parity: the dense tick on the card with
+    all four kernels on, held tick by tick to the lockstep oracle (the
+    N = 256 broadcast boot with the share cap, lean and int16; then a
+    random-fault N = 128 run whose dense and blocked telemetry ticks match
+    the oracle's counters). It raises on any difference; each kernel must
+    have launched."""
+    import chip_smoke
+
+    out = chip_smoke.phase_oracle_parity(device=card)
+    assert all(out["launches"][k] > 0 for k in chip_smoke.ORACLE_KERNELS), out["launches"]
+    assert out["boot"]["converged"]
+
+
+def test_fed_serve_on_card_small_classes(card):
+    """``chip_smoke.py``'s federation phase at classes 16/32: two servers
+    on the card behind the router, the open-loop level with churn, e1
+    killed mid-round; no lost terminal, no double completion in a journal,
+    the spilled request adopted by e0 and equal to its standalone run,
+    nothing built; then ``fedload --dryrun`` on the card."""
+    import chip_smoke
+
+    out = chip_smoke.phase_fed_serve(device="cuda", classes=(16, 32), lanes=((4, 2), (4,)))
+    assert out["compiles_steady"] == 0 and not out["journal_duplicates"]
+    assert out["adopted"]["equal"] and out["adopted"]["engine"] == "e0"
+    assert out["dryrun"]["report"]["fedserve_dryrun"] == "ok"
