@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs twenty-five phases, each printing one JSON line; any failure raises and the
+runs twenty-seven phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -160,16 +160,29 @@ script exits non-zero without the result line:
                scenarios at N = 16/32, their own bars).
 25. serve_obs -- ``serve/obsdryrun.py::run_obs_dryrun`` on the card
                (traced lifecycle, exporters, obs overhead at most 5 %).
+26. sparse_parity -- the blocked-sparse ``[N, K]`` tick on the card against
+               the CPU: 48 faulty ticks at N = 4,096, K = 16 (kills, a
+               revival, 5 % drop), random and deterministic, int32 and int16
+               timers, every plane and metric bit-equal tick by tick; then
+               the first 2 ticks at N = 2^20, planes bit-equal and
+               ``mean_membership`` to rel 1e-6. Mismatches by field and tick.
+27. sparse_boot -- the sparse bench's run at full width (N = 1,048,576,
+               K = 16, 3 boot contacts, 3 chunks of 8 ticks): warmup, s/tick
+               and ns/peer/tick of the steady chunks, the fill curve, peak
+               memory, ``compiles_steady`` 0; a ``save_sparse`` /
+               ``load_sparse`` round trip of the mid state resumed bit-equal
+               to the unbroken run; the peak of one tick at N = 1,024 and
+               8,192; the dryrun's stat leg at n = 24 on the card.
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
-the two serve runs, the oracle parity and the serve drivers) and read
-just after: each kernel of the dense path
-must have launched; the blocked tick, the fleet, the leaps and the serve
-step run no kernel (as in the JAX package, whose fleet refuses the Pallas
-flags and whose leap has no Pallas call), so their runs count 0 and none
-is required of them; every one-mesh
+the two serve runs, the oracle parity, the serve drivers and the two
+sparse runs) and read just after: each kernel of the dense path
+must have launched; the blocked tick, the fleet, the leaps, the serve
+step and the sparse tick run no kernel (as in the JAX package, whose fleet
+refuses the Pallas flags and whose leap and sparse tick have no Pallas
+call), so their runs count 0 and none is required of them; every one-mesh
 warp run with a dense tick in it must launch the dense path's kernels. The
 last lines are the card's name and power limit, the
 ``{"kernels": [...]}`` summary (per kernel the numbers of the shape it is
@@ -2652,6 +2665,181 @@ def phase_serve_chaos_obs(device="cuda") -> tuple[dict, dict]:
     return tuple(outs)
 
 
+# ----------------------------------------------------------------- sparse plane
+
+# The sparse plane's runs: the JAX bench's shape (N = 2^20, K = 16, 3 boot
+# contacts, chunks of 8 ticks) and a faulty parity schedule at N = 4,096.
+SPARSE_N = 1 << 20
+SPARSE_K = 16
+SPARSE_CHUNK = 8
+SPARSE_CHUNKS = 3
+SPARSE_PARITY_N = 4096
+SPARSE_PARITY_TICKS = 48
+SPARSE_FULL_TICKS = 2
+
+
+def sparse_spec(timer_dtype: str = "int32"):
+    from kaboodle_tpu_torch.sparseplane import SparseSpec
+
+    return SparseSpec(k=SPARSE_K, gossip_fanout=4, boot_contacts=3, timer_dtype=timer_dtype)
+
+
+def sparse_fault_inputs(n: int, ticks: int):
+    """The parity schedule, on the CPU: 1 % of the peers killed at tick 8 and
+    revived at tick 24, 3 % more killed at tick 16, 5 % drop throughout."""
+    import numpy as np
+    import torch
+
+    from kaboodle_tpu_torch.sparseplane import SparseTickInputs
+
+    rng = np.random.default_rng(11)
+    first, second = rng.permutation(n)[: n // 100], rng.permutation(n)[: 3 * n // 100]
+    kill = np.zeros((ticks, n), bool)
+    revive = np.zeros((ticks, n), bool)
+    kill[8, first] = True
+    kill[16, second] = True
+    revive[24, first] = True
+    return SparseTickInputs(kill=torch.as_tensor(kill), revive=torch.as_tensor(revive),
+                            drop_rate=torch.full((ticks,), 0.05))
+
+
+def sparse_mismatches(tick, st, inputs, ticks: int, device, mean_rel: float | None = None):
+    """Tick ``st`` on the card and on the CPU side by side; returns the
+    ``(field, tick)`` pairs that differ (every state plane and metric bit
+    for bit, or ``mean_membership`` to ``mean_rel`` when given), the
+    largest relative ``mean_membership`` difference, and the last state."""
+    import torch
+
+    sides = {"card": st.to(device), "cpu": st.to("cpu")}
+    bad, rel = [], 0.0
+    for t in range(ticks):
+        out = {}
+        for side, s in sides.items():
+            sides[side], m = tick(s, inputs.at(t).to(s.device))
+            out[side] = to_host(sides[side]), to_host(m)
+        (a, ma), (b, mb) = out["card"], out["cpu"]
+        bad += [(f, t) for f in state_diff(a, b)]
+        rel = max(rel, abs(float(ma.mean_membership) - float(mb.mean_membership))
+                  / max(abs(float(mb.mean_membership)), 1e-30))
+        exact = [f.name for f in dataclasses.fields(ma)
+                 if mean_rel is None or f.name != "mean_membership"]
+        bad += [(f, t) for f in exact if not torch.equal(getattr(ma, f), getattr(mb, f))]
+        if mean_rel is not None and rel > mean_rel:
+            bad.append(("mean_membership", t))
+    return bad, rel, sides["card"]
+
+
+def phase_sparse_parity(device="cuda") -> dict:
+    """The sparse tick on the card against the CPU: 48 faulty ticks at
+    N = 4,096 (kills, a revival, 5 % drop) in random and deterministic mode,
+    int32 and int16 timers, every plane and metric bit-equal tick by tick;
+    then the first ticks of the bench's N = 2^20 boot, planes bit-equal and
+    ``mean_membership`` to rel 1e-6."""
+    import torch
+
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sparseplane import init_sparse_state, sparse_idle_inputs
+    from kaboodle_tpu_torch.sparseplane.bench import bench_cfg
+    from kaboodle_tpu_torch.sparseplane.runner import sparse_tick_program
+
+    release_device_memory()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    n, ticks = SPARSE_PARITY_N, SPARSE_PARITY_TICKS
+    inputs = sparse_fault_inputs(n, ticks)
+    runs, mismatches = {}, {}
+    for det in (False, True):
+        for timer in ("int32", "int16"):
+            cfg = dataclasses.replace(bench_cfg(), deterministic=det)
+            tick = sparse_tick_program(cfg, sparse_spec(timer), True)
+            st = init_sparse_state(n, sparse_spec(timer), seed=5, device="cpu")
+            bad, _, last = sparse_mismatches(tick, st, inputs, ticks, device)
+            key = ("deterministic" if det else "random") + "_" + timer
+            runs[key] = {"ticks": ticks, "alive": int(last.alive.sum()),
+                         "wfip_slots": int((last.nbr_state == 3).sum()),
+                         "block_fill_end": float(to_host(last).nbr_state.gt(0).float().mean())}
+            mismatches[key] = [f"{f}@{t}" for f, t in bad]
+    tick = sparse_tick_program(bench_cfg(), sparse_spec(), False)
+    idle = sparse_idle_inputs(SPARSE_N, ticks=SPARSE_FULL_TICKS, device="cpu")
+    st = init_sparse_state(SPARSE_N, sparse_spec(), seed=0, device="cpu")
+    bad, rel, _ = sparse_mismatches(tick, st, idle, SPARSE_FULL_TICKS, device, mean_rel=1e-6)
+    mismatches[f"boot_n{SPARSE_N}"] = [f"{f}@{t}" for f, t in bad]
+    torch.cuda.synchronize()
+    out = {"phase": "sparse_parity", "n": n, "k": SPARSE_K, "faulty_ticks": ticks,
+           "runs": runs, "full_width": {"n": SPARSE_N, "ticks": SPARSE_FULL_TICKS,
+                                        "mean_membership_max_rel_diff": rel,
+                                        "tolerance": "planes and integer metrics bit-equal, "
+                                                     "mean_membership rel 1e-6"},
+           "mismatches": mismatches, "wall_s": time.perf_counter() - t0, "launches": counts()}
+    emit(out)
+    wrong = {k: v for k, v in mismatches.items() if v}
+    if wrong:
+        raise AssertionError(f"sparse_parity: card != CPU: {wrong}")
+    return out
+
+
+def phase_sparse_boot(device="cuda") -> dict:
+    """The bench's run at full width (N = 2^20, K = 16, 3 boot contacts, 3
+    chunks of 8 ticks) on the card; a ``save_sparse``/``load_sparse`` round
+    trip of the state after chunk 1, resumed for chunk 2 and held bit-equal
+    to the unbroken run; the per-tick peak at N = 1,024 and 8,192; then the
+    dryrun's stat leg at n = 24."""
+    import torch
+
+    from kaboodle_tpu_torch import checkpoint
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sparseplane import simulate_sparse, sparse_idle_inputs
+    from kaboodle_tpu_torch.sparseplane import bench as sparse_bench
+    from kaboodle_tpu_torch.sparseplane import dryrun as sparse_dryrun
+
+    release_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    spec, dev = sparse_spec(), torch.device(device)
+    states = {}
+    run = sparse_bench.run_boot(SPARSE_N, spec, SPARSE_CHUNK, SPARSE_CHUNKS, 0, dev,
+                                on_chunk=states.__setitem__)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = run["steady_chunk_s"]
+    s_per_tick = sum(steady) / (len(steady) * SPARSE_CHUNK)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "sparse_mid.npz"
+        t0 = time.perf_counter()
+        checkpoint.save_sparse(path, states[1], atomic=True)
+        mid = checkpoint.load_sparse(path, device=dev)
+        ckpt_s = time.perf_counter() - t0
+        archive_bytes = path.stat().st_size
+    loaded_bad = state_diff(mid, states[1])
+    resumed, _ = simulate_sparse(mid, sparse_idle_inputs(SPARSE_N, ticks=SPARSE_CHUNK, device=dev),
+                                 sparse_bench.bench_cfg(), spec, device=dev)
+    resumed_bad = state_diff(resumed, states[SPARSE_CHUNKS - 1])
+    del states, mid, resumed
+    release_device_memory()
+    sub = sparse_bench.sub_quadratic(spec, dev)
+    stat = sparse_dryrun._stat_check(0, dev)
+    out = {"phase": "sparse_boot", "n": SPARSE_N, "k": SPARSE_K, "boot_contacts": 3,
+           "chunk": SPARSE_CHUNK, "chunks": SPARSE_CHUNKS, "warmup_s": run["warmup_s"],
+           "steady_chunk_s": steady, "s_per_tick": s_per_tick,
+           "ns_per_peer_tick": 1e9 * s_per_tick / SPARSE_N, "curve": run["curve"],
+           "compiles_steady": run["compiles_steady"], "allocated_before": before,
+           "max_memory_allocated": peak, "launches": launches,
+           "checkpoint": {"save_load_s": ckpt_s, "archive_bytes": archive_bytes,
+                          "loaded_diff": loaded_bad, "resumed_diff": resumed_bad},
+           "sub_quadratic": sub, "stat_check": stat}
+    emit(out)
+    if run["compiles_steady"] != 0:
+        raise AssertionError(f"sparse_boot: {run['compiles_steady']} programs built while steady")
+    if loaded_bad or resumed_bad:
+        raise AssertionError(f"sparse_boot: checkpoint resume differs: {loaded_bad} {resumed_bad}")
+    if not all(stat["checks"].values()):
+        raise AssertionError(f"sparse_boot: dryrun stat checks failed: {stat['checks']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2699,9 +2887,11 @@ def main() -> int:
     sload = phase_serve_load()
     fed = phase_fed_serve()
     schaos, sobs = phase_serve_chaos_obs()
-    # The blocked tick, the fleet, the leaps and the serve step run no kernel
-    # (as in the JAX package): their runs (the serve drivers' too) are
-    # counted, and launch 0, but no launch is required of them.
+    sparse_par = phase_sparse_parity()
+    sparse_boot = phase_sparse_boot()
+    # The blocked tick, the fleet, the leaps, the serve step and the sparse
+    # tick run no kernel (as in the JAX package): their runs (the serve
+    # drivers' too) are counted, and launch 0, but no launch is required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
@@ -2715,7 +2905,8 @@ def main() -> int:
             "serve_parity": sparity["launches"], "oracle_parity": oracle["launches"],
             "serve_load": sload["launches"], "fed_serve": fed["launches"],
             "fed_serve_dryrun": fed["dryrun"]["launches"],
-            "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"]}
+            "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"],
+            "sparse_parity": sparse_par["launches"], "sparse_boot": sparse_boot["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

@@ -4,10 +4,10 @@ The port of ``compile_counter`` and ``assert_counter_live`` of the JAX
 package's ``analysis/ir/surface.py``. The JAX counter listens for fresh XLA
 compilations; the port builds programs instead of compiling them, so its
 counter reads the growth of :func:`~kaboodle_tpu_torch.serve.pool.program_builds`
-(misses of the pool's program caches and of the warp leap cache, plus the
-CUDA kernel libraries built or loaded). The drivers' zero-recompile gates
-(``compiles_steady == 0``) read it. The rest of the JAX module measures XLA
-programs and has no counterpart here.
+(misses of the pool's program caches, of the warp leap cache and of the
+sparse tick cache, plus the CUDA kernel libraries built or loaded). The
+drivers' zero-recompile gates (``compiles_steady == 0``) read it. The rest
+of the JAX module measures XLA programs and has no counterpart here.
 """
 
 from __future__ import annotations

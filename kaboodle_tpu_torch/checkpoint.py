@@ -17,6 +17,11 @@ A fleet checkpoint (``save_fleet`` / ``load_fleet``) holds the stacked
 counters, the version and a ``__fleet__`` marker: the JAX package's fleet
 schema, in both directions too.
 
+A sparse checkpoint (``save_sparse`` / ``load_sparse``) holds the
+``SparseState`` planes under ``sparse.``-prefixed names -- ``seed`` and
+``cursor`` as the JAX package's uint32 scalars -- the version and a
+``__sparse__`` marker: the JAX package's sparse schema, in both directions.
+
 Every failure to read an archive back -- missing, truncated, not a zip,
 a corrupt member, a wrong version or owner, missing fields -- raises
 :class:`~kaboodle_tpu_torch.errors.CheckpointError`.
@@ -192,3 +197,46 @@ def load_fleet(path, device=None):
     if generation is not None:
         generation = torch.as_tensor(np.array(generation), device=fleet.mesh.device)
     return fleet, generation
+
+
+def save_sparse(path, state, atomic: bool = False) -> None:
+    """Write a ``SparseState`` (blocked-sparse mesh) to ``path`` (.npz).
+
+    One entry per plane (``sparse.`` prefixed), the counter-RNG ``(seed,
+    cursor)`` pair included, so a restored mesh makes the draws an
+    uninterrupted run would have made. The ``__sparse__`` marker keeps the
+    three checkpoint families from cross-restoring; ``atomic=True`` as in
+    :func:`save`."""
+    from kaboodle_tpu_torch.sparseplane.state import sparse_state_to_numpy
+
+    arrays = {"sparse." + name: a for name, a in sparse_state_to_numpy(state).items()}
+    arrays["__version__"] = np.int32(_FORMAT_VERSION)
+    arrays["__sparse__"] = np.int32(1)
+    if atomic:
+        _savez_atomic(path, arrays)
+    else:
+        np.savez(path, **arrays)
+
+
+def load_sparse(path, device=None):
+    """Read a sparse checkpoint onto the card, or onto ``device`` when given.
+
+    Returns a ``SparseState``; round-trips bit-exactly. Every failure
+    raises :class:`CheckpointError`, a dense or fleet archive included."""
+    from kaboodle_tpu_torch.sparseplane.state import SparseState, sparse_state_from_numpy
+
+    with _open_npz(path) as z:
+        if "__version__" not in z.files:
+            raise CheckpointError(f"not a kaboodle checkpoint (no version entry): {path}")
+        version = int(z["__version__"])
+        if version != _FORMAT_VERSION:
+            raise CheckpointError(f"unsupported checkpoint version {version}")
+        if "__sparse__" not in z.files:
+            raise CheckpointError("not a sparse checkpoint (dense mesh? use checkpoint.load)")
+        fields = {f.name for f in dataclasses.fields(SparseState)}
+        present = {name[len("sparse."):] for name in z.files if name.startswith("sparse.")}
+        missing = fields - present
+        if missing:
+            raise CheckpointError(f"checkpoint missing fields: {sorted(missing)}")
+        leaves = {name: z["sparse." + name] for name in fields}
+    return sparse_state_from_numpy(leaves, device=device)

@@ -59,3 +59,15 @@ class SwimConfig:
             raise ValueError("num_indirect_ping_peers must be >= 1")
         if self.num_candidate_target_peers < 1:
             raise ValueError("num_candidate_target_peers must be >= 1")
+
+
+# Reference wire/transport constants, kept for the interop edge (see
+# kaboodle_tpu_torch.transport). Values cited from the reference sources.
+INCOMING_BUFFER_SIZE = 10240  # kaboodle.rs:43
+DISCOVERY_BUFFER_SIZE = 1024  # discovery.rs:16
+DEFAULT_BROADCAST_PORT = 7475  # justfile run2x2 demo port
+IPV6_MULTICAST_GROUP = "ff02::1213:1989"  # networking.rs:86
+PROBE_BACKOFF_START_MS = 1000  # discovery.rs:19
+PROBE_BACKOFF_MULTIPLIER = 1.25  # discovery.rs:22
+PROBE_BACKOFF_CAP_MS = 10000  # discovery.rs:25
+LATENCY_EWMA_MOST_RECENT_WEIGHT = 0.8  # kaboodle.rs:810

@@ -27,6 +27,8 @@ so chunking changes no bit.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 M32 = 0xFFFFFFFF
@@ -155,7 +157,13 @@ def draw_chunks(key: Key, n_rows: int, n_cols: int):
 
 def uniform(key: Key, shape: tuple[int, ...], device) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype=float32)`` (under ``[E]`` keys,
-    ``[E, *shape]``: each member's own draw)."""
+    ``[E, *shape]``: each member's own draw), for a shape of any rank.
+
+    A cell's counter is its flat (row-major) index, so a draw of rank 3 or
+    more is the 2-D draw ``(shape[0], prod(shape[1:]))`` reshaped."""
+    if len(shape) > 2:
+        flat = uniform(key, (shape[0], math.prod(shape[1:])), device)
+        return flat.view(*batch_shape(key), *shape)
     if len(shape) == 1:
         return bits_to_uniform(random_bits(key, shape, device))
     out = torch.empty(batch_shape(key) + tuple(shape), dtype=torch.float32, device=device)

@@ -19,9 +19,11 @@ warp        the span program: k (near-)quiescent ticks as one batched pass
 serve       the masked fleet converge chunk of a lane pool
             (``make_serve_step``): the fleet tick with per-lane activity,
             budgets and convergence freezes
+sparse      the blocked_topk ``[N, K]`` tick (``make_sparse_tick`` ->
+            sparseplane/kernel.py)
 ==========  ==============================================================
 
-The JAX package's ``sharded`` and ``sparse`` engines are not ported yet.
+The JAX package's ``sharded`` engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +40,21 @@ from kaboodle_tpu_torch.phasegraph.exec import PALLAS_BATCH_ERROR, make_tick_fn
 from kaboodle_tpu_torch.phasegraph.span import make_leap_fn
 
 # The engines this module builds (the JAX package's names).
-ENGINES = ("dense", "fused", "chunked", "fleet", "warp", "serve")
+ENGINES = ("dense", "fused", "chunked", "fleet", "warp", "serve", "sparse")
+
+# The sparse program's tail passes and their ops, ``plan(build_graph(cfg,
+# faulty, layout="blocked_topk"), "sparse").tail`` of the JAX planner (the
+# same for ``faulty`` True and False; pinned by
+# tests/test_torch_sparseplane.py); the pass names are
+# ``sparseplane.kernel.SPARSE_TAIL_PASSES``.
+SPARSE_PASSES = {
+    "expiry": ("suspicion",),
+    "draw": ("probe_draw",),
+    "exchange": ("call1", "call2", "calls34"),
+    "gossip": ("anti_entropy",),
+    "repair": ("block_repair",),
+    "finish": ("finish",),
+}
 
 
 def make_dense_tick(cfg: SwimConfig, faulty: bool = True, telemetry: bool = False) -> Callable:
@@ -80,6 +96,24 @@ def make_fleet_tick(
         raise ValueError(PALLAS_BATCH_ERROR)
     return make_tick_fn(dataclasses.replace(cfg, fast_path=False), faulty=faulty,
                         program="full", telemetry=telemetry)
+
+
+def make_sparse_tick(cfg: SwimConfig, spec, faulty: bool = True) -> Callable:
+    """The blocked_topk-layout tick: ``[N, K]`` neighbor blocks, counter RNG.
+
+    ``spec`` is a :class:`~kaboodle_tpu_torch.sparseplane.state.SparseSpec`.
+    There is no planner in the port: the program's tail is
+    :data:`SPARSE_PASSES`, attached to the tick as ``passes``, and its pass
+    order must be the kernel's."""
+    from kaboodle_tpu_torch.sparseplane.kernel import SPARSE_TAIL_PASSES, make_sparse_tick_fn
+
+    if tuple(SPARSE_PASSES) != SPARSE_TAIL_PASSES:
+        raise AssertionError(
+            f"sparse plan/kernel drift: planned tail {tuple(SPARSE_PASSES)}, "
+            f"kernel implements {SPARSE_TAIL_PASSES}")
+    tick = make_sparse_tick_fn(cfg, spec, faulty=faulty)
+    tick.passes = SPARSE_PASSES
+    return tick
 
 
 def make_warp_leap(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = False) -> Callable:

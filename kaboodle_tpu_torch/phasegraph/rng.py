@@ -10,8 +10,9 @@ JAX package; renumbering one changes every draw of every run.
 
 The dense tick derives its keys on the device from the state's ``key`` and
 ``tick`` tensors (:func:`state_draw_keys`; ``[E]`` words for an ensemble),
-the blocked tick on the host from Python ints: both forms give the same
-words.
+the sparse tick from its ``seed`` and ``cursor`` tensors
+(:func:`stream_keys`), the blocked tick on the host from Python ints: every
+form gives the same words.
 """
 
 from __future__ import annotations
@@ -58,6 +59,17 @@ def stream_uniform(
 ) -> torch.Tensor:
     """Shaped float32 uniform in [0, 1) for one phase (position = row/slot)."""
     return threefry.uniform(stream_key(seed, cursor, stream), shape, device)
+
+
+def stream_keys(seed: torch.Tensor, cursor: torch.Tensor, streams) -> tuple:
+    """:func:`stream_key` of each stream in ``streams``, for ``seed`` and
+    ``cursor`` given as 0-d tensors of 32-bit words (int32 bits): the
+    streams are folded in one batched call and every key word stays on
+    their device, with no host fetch."""
+    k0, k1 = threefry.fold_in(threefry.prng_key(seed), cursor)
+    ids = torch.tensor(streams, dtype=torch.int64, device=cursor.device)
+    w0, w1 = threefry.fold_in((k0[..., None], k1[..., None]), ids)
+    return tuple((w0[..., i], w1[..., i]) for i in range(len(streams)))
 
 
 def tick_stream_key(key: threefry.Key, tick: int, stream: int) -> threefry.Key:

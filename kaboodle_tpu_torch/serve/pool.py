@@ -181,15 +181,18 @@ _PROGRAM_CACHES = (_step_program, _reseed_program, _insert_program, _agree_progr
 
 def program_builds() -> int:
     """Programs the serving path has built in this process: misses of the
-    pool's program caches and of the warp ``leap_cache``, plus the CUDA
-    kernel libraries ``ops/_cuda.py`` has built or loaded. The port's
+    pool's program caches, of the warp ``leap_cache`` and of the sparse
+    tick cache (``sparseplane/runner.py``), plus the CUDA kernel libraries
+    ``ops/_cuda.py`` has built or loaded. The port's
     counterpart of the JAX package's XLA compile count (the serve plane's
     ``compiles_steady`` gauge is this number's growth after warmup)."""
     from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sparseplane.runner import sparse_tick_program
     from kaboodle_tpu_torch.warp.runner import leap_cache
 
     return (sum(c.cache_info().misses for c in _PROGRAM_CACHES)
-            + leap_cache.misses + len(_cuda._libs))
+            + leap_cache.misses + sparse_tick_program.cache_info().misses
+            + len(_cuda._libs))
 
 
 def _np_u32(x: torch.Tensor) -> np.ndarray:

@@ -5,10 +5,10 @@
 
 Builds the hand kernels (``ops/_cuda.py``), then calls each named phase
 function of ``chip_smoke.py`` (``oracle_parity``, ``serve_load``,
-``fed_serve``, ``serve_chaos_obs``; default: all four, the phases that
-take no earlier phase's result) with its defaults. Each phase prints its
-own JSON line; after it this prints ``PHASE <name> <seconds>``, or the
-traceback and goes on to the next. Prints the card line first, and exits
+``fed_serve``, ``serve_chaos_obs``, ``sparse_parity``, ``sparse_boot``;
+default: all six, the phases that take no earlier phase's result) with its
+defaults. Each phase prints its own JSON line; after it this prints
+``PHASE <name> <seconds>``, or the traceback and goes on to the next. Prints the card line first, and exits
 non-zero if any phase failed. A quick check of those phases, and a timing
 probe of their sizes, without the rest of the smoke. Needs a CUDA card
 and nvcc.
@@ -22,7 +22,8 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("oracle_parity", "serve_load", "fed_serve", "serve_chaos_obs")
+PHASES = ("oracle_parity", "serve_load", "fed_serve", "serve_chaos_obs", "sparse_parity",
+          "sparse_boot")
 
 
 def main(argv=None) -> int:

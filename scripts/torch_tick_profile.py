@@ -14,7 +14,9 @@ tick), and the fleet's drop-rate sweep (``fleet/bench.py::sweep``, E = 256
 meshes of N = 1,024, ``drop_rate=0:0.3:16``, at most 64 ticks), and the
 warp pass of ``BENCH_warp3.json``'s drain (``chip_smoke.warp_drain_case``:
 N = 1,024, ``simulate_warped`` over 1,024 calm ticks from the entry of the
-pass's first leap, a hybrid span, through the dense season after it), random
+pass's first leap, a hybrid span, through the dense season after it), and
+the sparse bench's first chunk (``simulate_sparse``: 8 ticks from the boot
+of N = 2^20 peers, K = 16, ``chip_smoke.sparse_spec``), random
 mode -- twice each: once plain for the wall time (ending in
 ``torch.cuda.synchronize()``), once under ``torch.profiler`` for the device
 time by kernel. The dense cells are warmed up by a third run first; the
@@ -42,7 +44,8 @@ HAND_KERNELS = ("fused_fp_kernel", "fused_suspicion_kernel", "fused_oldest_k_ker
 # Calm ticks of the drain's warp pass in the warp cell's profile.
 WARP_WINDOW = 1024
 CELLS = ("boot_n16384_lean", "churn_config3_n8192", "chunked_boot_config4_n65536",
-         "chunked_config5_n65536_3ticks", "fleet_sweep_e256_n1024", "warp_drain_n1024")
+         "chunked_config5_n65536_3ticks", "fleet_sweep_e256_n1024", "warp_drain_n1024",
+         "sparse_boot_n1048576")
 
 
 def _device_us(evt, attrs=("self_device_time_total", "self_cuda_time_total")) -> float:
@@ -144,6 +147,17 @@ def _warp_drain_case(chip_smoke, device="cuda", window: int = WARP_WINDOW):
     return make, run, True, box
 
 
+def _sparse_case(chip_smoke, ticks: int = 8):
+    """``(make, run, warm)`` of the sparse bench's first chunk."""
+    from kaboodle_tpu_torch.sparseplane import init_sparse_state, simulate_sparse, sparse_idle_inputs
+    from kaboodle_tpu_torch.sparseplane.bench import bench_cfg
+
+    spec, n = chip_smoke.sparse_spec(), chip_smoke.SPARSE_N
+    idle = sparse_idle_inputs(n, ticks=ticks)
+    return (lambda: init_sparse_state(n, spec, seed=0),
+            lambda st: simulate_sparse(st, idle, bench_cfg(), spec), True)
+
+
 def _per_tick(cell: dict, box: dict, steps: int = 256, ticks: int = 64) -> None:
     """Device ms per dense tick and per leap step from the warp cell's
     ranges, and both timed directly from the window's entry state: a
@@ -207,6 +221,7 @@ def main() -> int:
         "fleet_sweep_e256_n1024": lambda: (
             lambda: chip_smoke.fleet_args("--sweep", chip_smoke.FLEET_SWEEP), _fleet_sweep, False),
         "warp_drain_n1024": lambda: _warp_drain_case(chip_smoke),
+        "sparse_boot_n1048576": lambda: _sparse_case(chip_smoke),
     }
     cells = []
     for name in args.cells.split(","):

@@ -262,3 +262,129 @@ def test_fleet_archive_guards(tmp_path):
         with pytest.raises(jerrors.CheckpointError):
             jckpt.load_fleet(broken)
     assert checkpoint.load_fleet(fleet, device=CPU)[0].ensemble == 2
+
+
+# ---------------------------------------------------------------- sparse archives
+
+
+def _sparse_pair(timer="int32"):
+    from kaboodle_tpu.sparseplane import state as jsparse
+    from kaboodle_tpu_torch.sparseplane import SparseSpec
+
+    kw = dict(k=16, gossip_fanout=4, boot_contacts=2, timer_dtype=timer)
+    return (SwimConfig(join_broadcast_enabled=False), SparseSpec(**kw),
+            JaxSwimConfig(join_broadcast_enabled=False), jsparse.SparseSpec(**kw))
+
+
+def _sparse_leaves(jst) -> dict:
+    from kaboodle_tpu.sparseplane import SparseState as JaxSparseState
+
+    return {f.name: np.asarray(getattr(jst, f.name)) for f in dataclasses.fields(JaxSparseState)}
+
+
+def _sparse_inputs(n, ticks, seed):
+    """Kills, revives and drops as stacked numpy arrays for both packages."""
+    from kaboodle_tpu.sparseplane import SparseTickInputs as JaxInputs
+    from kaboodle_tpu_torch.sparseplane import SparseTickInputs
+
+    rng = np.random.default_rng(seed)
+    kill, revive = rng.random((ticks, n)) < 0.05, rng.random((ticks, n)) < 0.1
+    rate = np.full((ticks,), 0.1, np.float32)
+    return (JaxInputs(kill=jnp.asarray(kill), revive=jnp.asarray(revive),
+                      drop_rate=jnp.asarray(rate)),
+            SparseTickInputs(kill=torch.as_tensor(kill), revive=torch.as_tensor(revive),
+                             drop_rate=torch.as_tensor(rate)))
+
+
+@pytest.mark.parametrize("timer", ["int32", "int16"])
+def test_sparse_archives_both_ways(tmp_path, timer):
+    """A JAX-written sparse archive loads in the port and a port-written one
+    in JAX, every plane and dtype equal (``seed``/``cursor`` as uint32); a
+    run resumed from either equals the unbroken run."""
+    from kaboodle_tpu.sparseplane import init_sparse_state as jinit
+    from kaboodle_tpu.sparseplane import simulate_sparse as jsimulate
+    from kaboodle_tpu_torch.sparseplane import simulate_sparse
+    from kaboodle_tpu_torch.sparseplane.state import (
+        sparse_state_from_numpy,
+        sparse_state_to_numpy,
+    )
+
+    cfg, spec, jcfg, jspec = _sparse_pair(timer)
+    n = 20
+    jinp, tinp = _sparse_inputs(n, 12, seed=3)
+    half = lambda inp, a, b: dataclasses.replace(  # noqa: E731
+        inp, kill=inp.kill[a:b], revive=inp.revive[a:b], drop_rate=inp.drop_rate[a:b])
+    jmid, _ = jsimulate(jinit(n, jspec, seed=2**31 + 9), half(jinp, 0, 6), jcfg, jspec)
+    jend, _ = jsimulate(jmid, half(jinp, 6, 12), jcfg, jspec)
+
+    jpath = tmp_path / "jax_sparse.npz"
+    jckpt.save_sparse(jpath, jmid)
+    tmid = checkpoint.load_sparse(jpath, device=CPU)
+    _assert_same(_sparse_leaves(jmid), sparse_state_to_numpy(tmid), "jax -> port")
+    tend, _ = simulate_sparse(tmid, half(tinp, 6, 12), cfg, spec, device=CPU)
+    _assert_same(_sparse_leaves(jend), sparse_state_to_numpy(tend), "port resumed")
+
+    tpath = tmp_path / "port_sparse.npz"
+    checkpoint.save_sparse(tpath, tmid, atomic=True)
+    with np.load(tpath) as z:
+        assert z["sparse.seed"].dtype == np.uint32 and z["sparse.cursor"].dtype == np.uint32
+        assert z["sparse.nbr_timer"].dtype == np.dtype(timer) and "__sparse__" in z.files
+    back = jckpt.load_sparse(tpath)
+    _assert_same(_sparse_leaves(jmid), _sparse_leaves(back), "port -> jax")
+    jend2, _ = jsimulate(back, half(jinp, 6, 12), jcfg, jspec)
+    _assert_same(_sparse_leaves(jend), _sparse_leaves(jend2), "jax resumed")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["jax_sparse.npz", "port_sparse.npz"]
+    # the unbroken port run equals the resumed one
+    start = sparse_state_from_numpy(_sparse_leaves(jinit(n, jspec, seed=2**31 + 9)), device=CPU)
+    whole, _ = simulate_sparse(start, tinp, cfg, spec, device=CPU)
+    _assert_same(sparse_state_to_numpy(whole), sparse_state_to_numpy(tend), "unbroken")
+
+
+def test_sparse_checkpoint_guards(tmp_path):
+    """The JAX guards: the three checkpoint families never cross-restore, a
+    torn, alien or missing file and a missing plane raise CheckpointError."""
+    from kaboodle_tpu_torch.sparseplane import init_sparse_state
+
+    _, spec, _, _ = _sparse_pair()
+    st = init_sparse_state(16, spec, seed=3, device=CPU)
+    sp = tmp_path / "sparse.npz"
+    checkpoint.save_sparse(sp, st)
+    with pytest.raises(CheckpointError):
+        checkpoint.load(sp, device=CPU)
+    with pytest.raises(CheckpointError):
+        checkpoint.load_fleet(sp, device=CPU)
+    dense = tmp_path / "dense.npz"
+    checkpoint.save(dense, tstate.init_state(8, seed=1, device=CPU))
+    with pytest.raises(CheckpointError, match="not a sparse checkpoint"):
+        checkpoint.load_sparse(dense, device=CPU)
+    fleet = tmp_path / "fleet.npz"
+    jckpt.save_fleet(fleet, __import__("kaboodle_tpu.fleet.core", fromlist=["init_fleet"])
+                     .init_fleet(8, 2))
+    with pytest.raises(CheckpointError, match="not a sparse checkpoint"):
+        checkpoint.load_sparse(fleet, device=CPU)
+
+    torn = tmp_path / "torn.npz"
+    torn.write_bytes(sp.read_bytes()[: sp.stat().st_size // 3])
+    alien = tmp_path / "alien.npz"
+    alien.write_bytes(b"definitely not a zip archive\n" * 4)
+    for bad in (torn, alien, tmp_path / "missing.npz"):
+        with pytest.raises(CheckpointError):
+            checkpoint.load_sparse(bad, device=CPU)
+
+    with np.load(sp) as z:
+        entries = {k: np.asarray(v) for k, v in z.items()}
+    for drop, match in (("sparse.cursor", "cursor"), ("__version__", "no version entry")):
+        short = tmp_path / f"short_{drop}.npz"
+        np.savez(short, **{k: v for k, v in entries.items() if k != drop})
+        with pytest.raises(CheckpointError, match=match):
+            checkpoint.load_sparse(short, device=CPU)
+    wrong = tmp_path / "wrong_version.npz"
+    np.savez(wrong, **{**entries, "__version__": np.int32(99)})
+    with pytest.raises(CheckpointError, match="unsupported checkpoint version 99"):
+        checkpoint.load_sparse(wrong, device=CPU)
+    # the JAX package raises the same on the port's archive
+    with pytest.raises(jerrors.CheckpointError):
+        jckpt.load(sp)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            checkpoint.load_sparse(sp)

@@ -205,6 +205,9 @@ def test_block_must_divide_n():
     (dict(faithful_failed_broadcast=False, faithful_indirect_ack=False), True),
     # The D5 share cap below N: the capped branch of the blocked union.
     (dict(deterministic=True, max_share_peers=8, faithful_failed_broadcast=False), False),
+    # The three fields no other case varies, under the kill/revive churn.
+    (dict(num_indirect_ping_peers=2, rebroadcast_interval_ticks=4, max_peer_share_age_ticks=6),
+     True),
 ])
 def test_protocol_variants(jax_chunked, kw, churn):
     sc = jscen.Scenario(N, 30).kill_at(2, list(range(50, 58)))

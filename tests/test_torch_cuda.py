@@ -457,3 +457,48 @@ def test_fed_serve_on_card_small_classes(card):
     assert out["compiles_steady"] == 0 and not out["journal_duplicates"]
     assert out["adopted"]["equal"] and out["adopted"]["engine"] == "e0"
     assert out["dryrun"]["report"]["fedserve_dryrun"] == "ok"
+
+
+@pytest.mark.parametrize("n", [23, 64])
+@pytest.mark.parametrize("det", [True, False])
+def test_sparse_tick_on_card_equals_cpu(card, n, det):
+    """The sparse tick on the card against the CPU, tick by tick, int32 and
+    int16 timers: rows whose boot slots are all timed-out WaitingForPing at
+    one stamp (argmax ties: the first slot escalates), kills, revivals and a
+    30 % drop (undelivered pings, whose sender-marks and insert candidates
+    are dropped)."""
+    from kaboodle_tpu_torch.sparseplane import (
+        SparseSpec,
+        SparseTickInputs,
+        init_sparse_state,
+        make_sparse_tick_fn,
+    )
+    from kaboodle_tpu_torch.sparseplane.state import (
+        sparse_metrics_to_numpy,
+        sparse_state_to_numpy,
+    )
+
+    rng = np.random.default_rng(n)
+    ticks = 16
+    inp = SparseTickInputs(kill=torch.as_tensor(rng.random((ticks, n)) < 0.05),
+                           revive=torch.as_tensor(rng.random((ticks, n)) < 0.1),
+                           drop_rate=torch.full((ticks,), 0.3))
+    for timer in ("int32", "int16"):
+        spec = SparseSpec(k=8, gossip_fanout=4, boot_contacts=6, timer_dtype=timer)
+        tick = make_sparse_tick_fn(SwimConfig(join_broadcast_enabled=False, deterministic=det),
+                                   spec)
+        st = init_sparse_state(n, spec, seed=n, device="cpu")
+        st.nbr_state[::2, :6] = WAITING_FOR_PING
+        st.tick = torch.tensor(5, dtype=torch.int32)
+        devices = {"cpu": torch.device("cpu"), "card": card}
+        sides = {d: st.to(dev) for d, dev in devices.items()}
+        escalated = 0
+        for t in range(ticks):
+            got = {}
+            for d, dev in devices.items():
+                sides[d], m = tick(sides[d], inp.at(t).to(dev))
+                got[d] = {**sparse_state_to_numpy(sides[d]), **sparse_metrics_to_numpy(m)}
+            for f, want in got["cpu"].items():
+                assert np.array_equal(got["card"][f], want), f"{timer} tick {t}: {f}"
+            escalated += int((sides["cpu"].nbr_state == WAITING_FOR_INDIRECT_PING).sum())
+        assert escalated

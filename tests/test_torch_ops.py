@@ -402,6 +402,15 @@ def test_package_imports_without_jax_or_reference_package():
                   "kaboodle_tpu_torch.serve.federation.router",
                   "kaboodle_tpu_torch.serve.federation.fedload"}
         assert slice9 <= set(names), slice9 - set(names)
+        slice10 = {"kaboodle_tpu_torch.sparseplane", "kaboodle_tpu_torch.sparseplane.state",
+                   "kaboodle_tpu_torch.sparseplane.rng", "kaboodle_tpu_torch.sparseplane.repair",
+                   "kaboodle_tpu_torch.sparseplane.kernel", "kaboodle_tpu_torch.sparseplane.runner",
+                   "kaboodle_tpu_torch.sparseplane.dryrun", "kaboodle_tpu_torch.sparseplane.bench",
+                   "kaboodle_tpu_torch.transport", "kaboodle_tpu_torch.transport.codec",
+                   "kaboodle_tpu_torch.transport.native", "kaboodle_tpu_torch.transport.real",
+                   "kaboodle_tpu_torch.checkpoint", "kaboodle_tpu_torch.spec",
+                   "kaboodle_tpu_torch.config"}
+        assert slice10 <= set(names), slice10 - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

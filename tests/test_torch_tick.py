@@ -195,6 +195,9 @@ def test_random_drop_rate(jax_tick):
     dict(deterministic=True, max_share_peers=40, faithful_failed_broadcast=False),
     dict(oldest_k_method="topk", fast_path=False, backdate_gossip_inserts=False),
     dict(num_candidate_target_peers=9, use_pallas_oldest_k=True),
+    # The three fields no other case varies: proxies per escalation, the
+    # rebroadcast period and the share age (anti-entropy filter, Q6 back-date).
+    dict(num_indirect_ping_peers=2, rebroadcast_interval_ticks=4, max_peer_share_age_ticks=6),
 ])
 def test_protocol_variants(jax_tick, kw):
     """Each variant on both engines; a kernel flag is set on the port only

@@ -334,6 +334,24 @@ def test_hybrid_sterile_ae_with_mutual_pings(det):
     assert bool((got.kpr_partner >= 0).any()), "anti-entropy never fired"
 
 
+def test_leaps_with_proxy_rebroadcast_and_share_age_off_default():
+    """``num_indirect_ping_peers``, ``rebroadcast_interval_ticks`` and
+    ``max_peer_share_age_ticks`` off their defaults: the strict leap from a
+    converged state and the hybrid leap with anti-entropy firing equal the
+    JAX leaps and the port's dense ticks."""
+    cfg, jcfg = cfgs(ping_timeout_ticks=48, num_indirect_ping_peers=2,
+                     rebroadcast_interval_ticks=4, max_peer_share_age_ticks=6)
+    st = converged(seed=5)
+    got = make_leap_fn(cfg, 9)(st)
+    assert_state(jax_leap(jcfg, 9)(to_jax(st)), got, "strict vs JAX")
+    assert_state(dense(st, cfg, 9), got, "strict vs port dense")
+    st = ae_state(cfg)
+    got = make_leap_fn(cfg, 10, hybrid=True)(st)
+    assert_state(jax_leap(jcfg, 10, hybrid=True)(to_jax(st)), got, "hybrid vs JAX")
+    assert_state(dense(st, cfg, 10), got, "hybrid vs port dense")
+    assert bool((got.kpr_partner >= 0).any()), "anti-entropy never fired"
+
+
 def test_masked_leap_over_members_equals_standalone():
     """One masked call over [E] leaves, each member at its own k_m (0
     included), equals each member's standalone leap of its own length."""
