@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs twenty-seven phases, each printing one JSON line; any failure raises and the
+runs twenty-eight phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -173,12 +173,27 @@ script exits non-zero without the result line:
                ``load_sparse`` round trip of the mid state resumed bit-equal
                to the unbroken run; the peak of one tick at N = 1,024 and
                8,192; the dryrun's stat leg at n = 24 on the card.
+28. cli      -- the port's command line (``python -m kaboodle_tpu_torch``)
+               as a user calls it: ``--sim 1024 --ticks 64`` as a
+               subprocess with no ``--device`` (so on the card), exit 0 and
+               converged, its JSON line equal to the same run in-process on
+               the CPU in every key but ``wall_s``; ``--sim-scenario 3 --sim
+               1024 --ticks 512 --warp --telemetry`` on the card (the churn's
+               recovery takes ~2·N ticks, so the run may end unconverged:
+               the exit code must say which) and ``telemetry --check`` on its
+               manifest; the sweep ``fleet --ensemble 64 --n 1024 --sweep
+               drop_rate=0:0.3:4 --max-ticks 32 --telemetry`` (one ``run``
+               and four ``sweep_bucket`` records); the ``phasegraph`` dryrun
+               at n = 32 and at n = 1,024 with E = 8, every engine bit-exact
+               with the dense tick on the card. Default ``SwimConfig``: no
+               hand kernel runs (the ``use_pallas_*`` flags are off, as in
+               the JAX CLI), so the in-process runs count 0 launches.
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
-the two serve runs, the oracle parity, the serve drivers and the two
-sparse runs) and read just after: each kernel of the dense path
+the two serve runs, the oracle parity, the serve drivers, the two
+sparse runs and the in-process command-line runs) and read just after: each kernel of the dense path
 must have launched; the blocked tick, the fleet, the leaps, the serve
 step and the sparse tick run no kernel (as in the JAX package, whose fleet
 refuses the Pallas flags and whose leap and sparse tick have no Pallas
@@ -1050,9 +1065,10 @@ CHUNK_BLOCK = 4096
 # The blocked tick against the dense one: the boot's width, 8 row blocks.
 PARITY_N = 16384
 PARITY_BLOCK = 2048
-# Config 5's depth cut: the first T5 of its 96 ticks (a multiple of 3, so
-# the drop, partition and heal thirds keep their shape).
-T5 = 24
+# Config 5's depth cut: the first T5 of its 96 ticks, scaled as the
+# scenario scales its thirds (drop over ticks 0-9, the partition over 5-9,
+# healed from 10). 16 keeps the smoke inside its 1,000 s budget.
+T5 = 16
 
 
 def lean_state(n: int, device="cuda"):
@@ -2840,6 +2856,94 @@ def phase_sparse_boot(device="cuda") -> dict:
     return out
 
 
+# ----------------------------------------------------------------- command line
+
+CLI_N = 1024
+CLI_TICKS = 64
+CLI_WARP_TICKS = 512
+CLI_SWEEP_E = 64
+CLI_SWEEP = ("fleet", "--ensemble", str(CLI_SWEEP_E), "--n", "1024", "--sweep",
+             "drop_rate=0:0.3:4", "--max-ticks", "32")
+CLI_DRYRUNS = (("phasegraph_n32", ("--n", "32")),
+               ("phasegraph_n1024", ("--n", "1024", "--ensemble", "8")))
+CLI_ENGINES = {"chunked", "fleet", "fused", "warp", "hybrid", "hybrid_masked"}
+
+
+def phase_cli(device="cuda") -> dict:
+    """The port's command line as a user calls it (phase 28): a ``--sim``
+    subprocess on the default device against the same run on the CPU, a
+    warped churn with its telemetry manifest checked by the summarizer, a
+    small sweep with its manifest, and the phasegraph dryrun at two sizes,
+    each engine bit-exact with the dense tick on ``device``."""
+    from kaboodle_tpu_torch import cli
+    from kaboodle_tpu_torch.telemetry.manifest import read_manifest
+
+    release_device_memory()
+    sim = ["--sim", str(CLI_N), "--ticks", str(CLI_TICKS)]
+    dev_args = [] if device == "cuda" else ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kaboodle_tpu_torch", *sim, *dev_args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    sub_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: the --sim subprocess exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    sub_line = json.loads(proc.stdout.strip().splitlines()[-1])
+    rc_cpu, cpu_line, cpu_wall, cpu_launches = last_json_line(
+        cli.main, [*sim, "--device", "cpu"])
+    same = ({k: v for k, v in sub_line.items() if k != "wall_s"}
+            == {k: v for k, v in cpu_line.items() if k != "wall_s"})
+
+    runs, walls = {"cli_sim_cpu": cpu_launches}, {"sim_subprocess": sub_wall,
+                                                   "sim_cpu": cpu_wall}
+    with tempfile.TemporaryDirectory() as tmp:
+        warp_path, sweep_path = str(Path(tmp) / "warp.jsonl"), str(Path(tmp) / "sweep.jsonl")
+        rc_warp, warp_line, walls["warp"], runs["cli_warp"] = last_json_line(
+            cli.main, ["--sim-scenario", "3", "--sim", str(CLI_N), "--ticks",
+                       str(CLI_WARP_TICKS), "--warp", "--telemetry", warp_path, *dev_args])
+        rc_check, _, walls["telemetry_check"], _ = last_json_line(
+            cli.main, ["telemetry", warp_path, "--check"])
+        warp_kinds = [r["kind"] for r in read_manifest(warp_path)]
+        rc_sweep, sweep_line, walls["sweep"], runs["cli_sweep"] = last_json_line(
+            cli.main, [*CLI_SWEEP, "--telemetry", sweep_path, *dev_args])
+        sweep_kinds = [r["kind"] for r in read_manifest(sweep_path)]
+    dryruns = {}
+    for name, argv in CLI_DRYRUNS:
+        rc, report, walls[name], runs[f"cli_{name}"] = last_json_line(
+            cli.main, ["phasegraph", *argv, *dev_args])
+        dryruns[name] = {"rc": rc, "engines": report["engines"], "ok": report["ok"]}
+
+    out = {"phase": "cli", "walls": walls, "wall_s": sum(walls.values()),
+           "sim": {"subprocess": sub_line, "cpu": cpu_line, "equal_but_wall": same,
+                   "rc_cpu": rc_cpu},
+           "warp": {"rc": rc_warp, "final_converged": warp_line["final_converged"],
+                    "dense_ticks": warp_line["dense_ticks_executed"],
+                    "leaped_ticks": warp_line["leaped_ticks"],
+                    "leap_classes": warp_line["leap_classes"],
+                    "memo": warp_line.get("warp_memo_stats"),
+                    "counter_totals": warp_line.get("counter_totals"),
+                    "manifest_kinds": {k: warp_kinds.count(k) for k in sorted(set(warp_kinds))},
+                    "telemetry_check_rc": rc_check},
+           "sweep": {"rc": rc_sweep, "line": sweep_line,
+                     "manifest_kinds": sweep_kinds},
+           "phasegraph": dryruns, "launches": runs}
+    emit(out)
+    if not (sub_line["final_converged"] and sub_line["n_peers"] == CLI_N and same and rc_cpu == 0):
+        raise AssertionError(f"cli: --sim on the card != on the CPU: {sub_line} {cpu_line}")
+    if rc_warp != (0 if warp_line["final_converged"] else 2) or rc_check != 0:
+        raise AssertionError(f"cli: --warp exited {rc_warp} for {warp_line}, "
+                             f"telemetry --check {rc_check}")
+    if warp_line["dense_ticks_executed"] + warp_line["leaped_ticks"] != CLI_WARP_TICKS:
+        raise AssertionError(f"cli: --warp ticks do not add up: {warp_line}")
+    if (rc_sweep != 0 or sweep_kinds != ["run"] + ["sweep_bucket"] * 4
+            or sum(b["members"] for b in sweep_line["per_knob"]) != CLI_SWEEP_E):
+        raise AssertionError(f"cli: the sweep failed: rc {rc_sweep}, {sweep_kinds}")
+    for name, d in dryruns.items():
+        if d["rc"] != 0 or not d["ok"] or set(d["engines"]) != CLI_ENGINES:
+            raise AssertionError(f"cli: {name} failed: {d}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2889,9 +2993,12 @@ def main() -> int:
     schaos, sobs = phase_serve_chaos_obs()
     sparse_par = phase_sparse_parity()
     sparse_boot = phase_sparse_boot()
+    cli_out = phase_cli()
     # The blocked tick, the fleet, the leaps, the serve step and the sparse
-    # tick run no kernel (as in the JAX package): their runs (the serve
-    # drivers' too) are counted, and launch 0, but no launch is required of them.
+    # tick run no kernel (as in the JAX package), nor does the command line
+    # at its default config (no kernel flag, as in the JAX CLI): their runs
+    # (the serve drivers' too) are counted, and launch 0, but no launch is
+    # required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
             "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
@@ -2906,7 +3013,8 @@ def main() -> int:
             "serve_load": sload["launches"], "fed_serve": fed["launches"],
             "fed_serve_dryrun": fed["dryrun"]["launches"],
             "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"],
-            "sparse_parity": sparse_par["launches"], "sparse_boot": sparse_boot["launches"]}
+            "sparse_parity": sparse_par["launches"], "sparse_boot": sparse_boot["launches"],
+            **cli_out["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

@@ -1,5 +1,7 @@
-"""graftconc's runtime half: the lock-order and event-loop sanitizer.
+"""graftconc: the serve plane's concurrency lane.
 
-The port of ``kaboodle_tpu/analysis/conc``'s ``sanitizer.py`` (stdlib
-only). The static KB5xx rules are not ported.
+The port of ``kaboodle_tpu/analysis/conc``: the static KB501-KB506 rules
+(``rules.py``, gated on ``baseline.json`` by ``python -m
+kaboodle_tpu_torch.analysis --conc``) and the runtime lock-order and
+event-loop sanitizer (``sanitizer.py``, stdlib only).
 """

@@ -17,15 +17,23 @@ at a fixed configuration, e.g. the documented sweep::
 Sweepable knobs are the per-member data (today ``drop_rate``); a static
 ``SwimConfig`` flag is A/B'd by one sweep per arm (``--deterministic``).
 The result is the JAX package's dict; ``backend`` names the device type
-(``"cuda"`` or ``"cpu"``). A zero converged fraction is a valid result for
-a harsh regime, not a failure. Runs on the card unless ``--device`` names
-another. Not ported yet: ``--shard`` (multi-device), ``--telemetry`` (the
-run manifest) and the CLI route.
+(``"cuda"`` or ``"cpu"``). Output contract: a human table on stdout, then
+the dict as one compact JSON line, the LAST line; ``--telemetry PATH``
+writes it as a run manifest too (one ``run`` record plus one
+``sweep_bucket`` record per knob value). Exit code 0 for any completed
+measurement: a zero converged fraction is a valid result for a harsh
+regime, not a failure. Runs on the card unless ``--device`` names another
+(it takes the place of the JAX sweep's ``--platform``). ``--shard``
+waits for the port's multi-device slice::
+
+    python -m kaboodle_tpu_torch fleet --sweep drop_rate=0:0.3:16 --ensemble 1024
+    python -m kaboodle_tpu_torch.fleet.bench --ensemble 64 --n 64 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -90,6 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="deterministic protocol draws (A/B arm pin)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run there)")
+    p.add_argument("--telemetry", nargs="?", const="fleet-telemetry.jsonl",
+                   default=None, metavar="PATH",
+                   help="write the sweep result as a JSONL run manifest "
+                        "(telemetry/manifest.py schema; one 'run' record "
+                        "plus one 'sweep_bucket' record per knob value)")
     return p
 
 
@@ -212,3 +225,27 @@ def run_sweep(args) -> dict:
     table; returns the JAX package's result dict (``wall_s`` ends after the
     device has finished, ``backend`` is the device type)."""
     return sweep(args)[0]
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    line = run_sweep(args)
+    if args.telemetry is not None:
+        # The sweep's machine output as a run manifest: the same dict the
+        # tail line prints, schema-tagged so the summarizer and any other
+        # manifest consumer can ingest it beside sim manifests.
+        from kaboodle_tpu_torch.telemetry.manifest import ManifestWriter
+
+        with ManifestWriter(args.telemetry) as w:
+            w.write("run", **{k: v for k, v in line.items() if k != "per_knob"})
+            for bucket in line.get("per_knob") or []:
+                w.write("sweep_bucket", **bucket)
+        print(f"telemetry manifest: {args.telemetry}", file=sys.stderr)
+    print(json.dumps(line))
+    # A completed measurement is success even when nothing converged (the
+    # non-convergent region of a sweep is a designed outcome, not an error).
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -60,7 +60,7 @@ _WAIT_S = 60.0
 
 def _percentile_ms(lat_s, q) -> float:
     # Host-list percentile over a few hundred floats, not a device fetch.
-    return float(np.percentile(np.asarray(lat_s, dtype=np.float64) * 1e3, q))
+    return float(np.percentile(np.asarray(lat_s, dtype=np.float64) * 1e3, q))  # noqa: KB501
 
 
 # -- 1. spill latency: the async round loop never stalls on disk -----------

@@ -144,7 +144,8 @@ async def _exercise(report: dict, device, tmp: str) -> None:
     conv_ticks = rows[kept]["result"]["ticks_run"]
     ref_state, _ = simulate(ref_state, idle_inputs(16, ticks=total - conv_ticks, device=dev),
                             cfg, faulty=False)
-    diff = _leaves_equal(resumed_member, ref_state)
+    # The check fetches both states from the device: run it off the loop.
+    diff = await asyncio.to_thread(_leaves_equal, resumed_member, ref_state)
     assert not diff, ("resumed member != standalone", diff)
     report["bitexact_harvests"] = checked
     report["bitexact_resumed_member"] = True

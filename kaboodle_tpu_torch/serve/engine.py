@@ -917,9 +917,7 @@ class ServeEngine:
         horizon = pool.active & ~pool.until_conv & (pool.remaining > 0)
         if not horizon.any():
             return False
-        # One bounded [E, 4] fetch; the round loop runs device work inline
-        # by design (server.py docstring).
-        rows = pool.signature().cpu().numpy()
+        rows = pool.signature().cpu().numpy()  # noqa: KB501 — bounded [E]-row fetch; the round loop dispatches inline by design (server.py docstring)
         k_m = np.zeros((pool.lanes,), dtype=np.int32)
         tracing = self.obs is not None and self.obs.trace
         classes: list[dict] = []

@@ -64,7 +64,7 @@ def _mix_fields(i: int) -> dict:
 
 def _latency_stats(lat_s: list[float]) -> dict:
     # Host-list stats on the harvested latencies, not a device fetch.
-    a = np.asarray(lat_s, dtype=np.float64) * 1e3
+    a = np.asarray(lat_s, dtype=np.float64) * 1e3  # noqa: KB501
     return {
         "p50_ms": float(np.percentile(a, 50)),
         "p99_ms": float(np.percentile(a, 99)),

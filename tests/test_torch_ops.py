@@ -376,8 +376,14 @@ def test_package_imports_without_jax_or_reference_package():
         import kaboodle_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(kaboodle_tpu_torch.__path__,
                                                       "kaboodle_tpu_torch.")]
+        # A __main__ module runs its command line when imported (the node
+        # mode never returns): the --help subprocess below covers them.
+        mains = [n for n in names if n.endswith(".__main__")]
+        assert set(mains) == {"kaboodle_tpu_torch.__main__",
+                              "kaboodle_tpu_torch.analysis.__main__"}, mains
         for name in names:
-            importlib.import_module(name)
+            if name not in mains:
+                importlib.import_module(name)
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kaboodle_tpu")
                and sys.modules[m] is not None]
         assert not bad, bad
@@ -411,12 +417,26 @@ def test_package_imports_without_jax_or_reference_package():
                    "kaboodle_tpu_torch.checkpoint", "kaboodle_tpu_torch.spec",
                    "kaboodle_tpu_torch.config"}
         assert slice10 <= set(names), slice10 - set(names)
+        slice11 = {"kaboodle_tpu_torch.cli", "kaboodle_tpu_torch.phasegraph.dryrun",
+                   "kaboodle_tpu_torch.analysis.core", "kaboodle_tpu_torch.analysis.conc.rules",
+                   "kaboodle_tpu_torch.analysis.cli"}
+        assert slice11 <= set(names), slice11 - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parent.parent))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 68
+    assert int(out.stdout.strip()) >= 75
+    # The command lines, with the same two packages blocked.
+    block = ("import runpy, sys\n"
+             "for blocked in ('jax', 'jaxlib', 'kaboodle_tpu'):\n"
+             "    sys.modules[blocked] = None\n"
+             "sys.argv = ['kaboodle_tpu_torch', '--help']\n"
+             "runpy.run_module('kaboodle_tpu_torch', run_name='__main__', alter_sys=True)\n")
+    out = subprocess.run([sys.executable, "-c", block], capture_output=True, text=True,
+                         timeout=120, cwd=str(__import__("pathlib").Path(__file__).parent.parent))
+    assert out.returncode == 0, out.stderr
+    assert "--sim" in out.stdout and "--device" in out.stdout
 
 
 def test_entry_points_default_to_the_card():
