@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs twenty-eight phases, each printing one JSON line; any failure raises and the
+runs twenty-nine phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -95,8 +95,9 @@ script exits non-zero without the result line:
                dense fault-free ticks, the hybrid leap in one 256 chunk, and
                a span-memo replay, all three final states bit-equal.
 17. warp_drain -- ``BENCH_warp3.json``'s end-to-end churn-recovery drain (bench.py
-               ``_bench_warp_churn_recovery``) at N = 1,024 and 8,192 ticks:
-               full state, int32 timers, ``ping_timeout_ticks`` = 1,365,
+               ``_bench_warp_churn_recovery``) at N = 1,024, cut to 4,096 of
+               its 8,192 ticks (the smoke's budget):
+               full state, int32 timers, ``ping_timeout_ticks`` = 682,
                kernel flags on; the churn half dense once, then the calm half
                dense, through ``simulate_warped`` with a ledger, a memo
                banking pass and a memo replay pass (all ``+memo``, no tick or
@@ -189,8 +190,24 @@ script exits non-zero without the result line:
                hand kernel runs (the ``use_pallas_*`` flags are off, as in
                the JAX CLI), so the in-process runs count 0 launches.
 
+29. sharded  -- (run right after ``telemetry``) the multi-device layer on
+               the card's one rank: a one-rank NCCL group made in-process,
+               every collective of the row-sharded tick called on it.
+               Config 3's churn for 16 ticks, all kernel flags on, each
+               sharded tick bit-equal to the dense tick (K1, K3, K4
+               launching on the rank's rows); the N = 16,384 boot through
+               ``run_until_converged_sharded``, equal to ``boot`` in ticks
+               and state; a ``save_async`` / ``load_orbax`` (DCP) round trip
+               of the sharded churn state; ``run_warped(mesh=)`` over 256
+               ticks of a converged N = 1,024 mesh, equal to the sharded
+               dense run; the sweep with ``--shard ensemble`` (``"sharded":
+               true``); the dryrun's ``sharded`` arm. The group is destroyed
+               at the end. The ``kernels`` phase also checks K1, K3 and K4
+               on ``[N/4, N]`` row slices of an N = 8,192 mesh at row0 =
+               N/4, N/2, 3N/4 (bit-exact, timed; cell ``row_slice``).
+
 Launch counts are reset just before each main-path run (boot, churn, the
-two telemetry runs, the facade at capacity 8,192, the checkpoint's
+two telemetry runs, the sharded churn ticks and the sharded boot, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
 the two serve runs, the oracle parity, the serve drivers, the two
 sparse runs and the in-process command-line runs) and read just after: each kernel of the dense path
@@ -331,20 +348,25 @@ def kernel_inputs(n: int, timer_dtype, gen):
     return state, timer, alive, idv
 
 
-def oldest_k_key_plane(state, timer, alive):
+def oldest_k_key_plane(state, timer, alive, row0: int = 0):
     """The int64 (timer, j) keys of K4's eligible cells, INT64_MAX elsewhere:
-    the input of the ``torch.topk`` yardstick, built outside its timing."""
+    the input of the ``torch.topk`` yardstick, built outside its timing
+    (``state`` may be rows ``row0 ..`` of a mesh)."""
     import torch
 
     from kaboodle_tpu_torch.spec import KNOWN
 
     n = state.shape[-1]
     col = torch.arange(n, device=state.device)
+    own = col[row0:row0 + state.shape[0]]
     T = timer.to(torch.int64)
-    elig = (alive[:, None] & (state == KNOWN) & (col[None, :] != col[:, None])
+    elig = (alive[:, None] & (state == KNOWN) & (col[None, :] != own[:, None])
             & (T != torch.iinfo(timer.dtype).max))
     return torch.where(elig, T * 2**32 + col[None, :], torch.iinfo(torch.int64).max)
 
+
+# The mesh whose quarter-row slices the kernels phase checks and times.
+ROW_SLICE_N = 8192
 
 # Warps (rows) per block of K4's launch (``kWarps`` in fused_oldest_k.cu,
 # which has no launch-shape query).
@@ -368,10 +390,11 @@ def launch_shape(name: str, n: int) -> tuple[int, int]:
     return blocks.value, threads.value
 
 
-def launch_floor_ms(name: str, n: int) -> tuple[float, list[int]]:
-    """An empty kernel at the grid and block of ``name``'s launch at ``n``,
-    timed as the kernel is (``time_ms``, 20 launches): the device time any
-    launch of that shape takes before it does work."""
+def launch_floor_ms(name: str, n: int, rows: int | None = None) -> tuple[float, list[int]]:
+    """An empty kernel at the grid and block of ``name``'s launch at ``n``
+    (over ``rows`` of its rows: the grid is in rows), timed as the kernel is
+    (``time_ms``, 20 launches): the device time any launch of that shape
+    takes before it does work."""
     import ctypes
 
     import torch
@@ -379,6 +402,8 @@ def launch_floor_ms(name: str, n: int) -> tuple[float, list[int]]:
     from kaboodle_tpu_torch.ops import _cuda
 
     blocks, threads = launch_shape(name, n)
+    if rows is not None:  # every launch shape here has whole blocks of rows
+        blocks = -(-blocks * rows // n)
     lib = _cuda.library(Path(KERNEL_META[name][0]).stem)
     lib.kb_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.kb_empty_launch.restype = ctypes.c_int
@@ -390,10 +415,13 @@ def launch_floor_ms(name: str, n: int) -> tuple[float, list[int]]:
     return time_ms(run, 20), [blocks, threads]
 
 
-def measure(name, n, k, state, timer, alive, idv, timed) -> tuple[dict, dict | None]:
+def measure(name, n, k, state, timer, alive, idv, timed, row0: int = 0
+            ) -> tuple[dict, dict | None]:
     """One kernel case against its plain version; with ``timed`` (the main
     path cell whose shape this is) also its time, its bound and, for K4, the
-    ``torch.topk`` yardstick."""
+    ``torch.topk`` yardstick. The inputs may be ``B`` rows of a mesh of
+    ``n`` starting at ``row0`` (a rank's rows); ``idv`` then holds those
+    rows' identity views."""
     import torch
 
     from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
@@ -403,42 +431,45 @@ def measure(name, n, k, state, timer, alive, idv, timed) -> tuple[dict, dict | N
 
     tb = timer.element_size()
     thr = 9
+    b = state.shape[0]  # the rows: n for a whole mesh
     live = int(alive.sum())
     if name == "fused_fp_idv":
         run = lambda: fused_fp_count(state, idv)  # noqa: E731
         plain = lambda: fused_fp_count_plain(state, idv)  # noqa: E731
-        nbytes = n * n * 5 + 8 * n
+        nbytes = b * n * 5 + 8 * b
     elif name == "fused_fp_hash":
         rec = peer_record_hash(torch.arange(n, device="cuda"), idv[0])
         run = lambda: fused_fp_count(state, rec)  # noqa: E731
         plain = lambda: fused_fp_count_plain(state, rec)  # noqa: E731
-        nbytes = n * n + 4 * n + 8 * n
+        nbytes = b * n + 4 * n + 8 * b
     elif name == "fused_suspicion":
-        run = lambda: fused_suspicion(state, timer, alive, thr)  # noqa: E731
-        plain = lambda: fused_suspicion_plain(state, timer, alive, thr)  # noqa: E731
+        run = lambda: fused_suspicion(state, timer, alive, thr, row0)  # noqa: E731
+        plain = lambda: fused_suspicion_plain(state, timer, alive, thr, row0)  # noqa: E731
         # Every output that reads a timer is gated on alive[i]: a dead
         # row needs its state row only.
-        nbytes = n * n + live * n * tb + n + 11 * n
+        nbytes = b * n + live * n * tb + b + 11 * b
     else:
-        run = lambda: fused_oldest_k(state, timer, alive, k)  # noqa: E731
-        plain = lambda: fused_oldest_k_plain(state, timer, alive, k)  # noqa: E731
+        run = lambda: fused_oldest_k(state, timer, alive, k, row0)  # noqa: E731
+        plain = lambda: fused_oldest_k_plain(state, timer, alive, k, row0)  # noqa: E731
         # Dead rows have no eligible cell and are not read.
-        nbytes = live * n * (1 + tb) + n + 5 * n * k
+        nbytes = live * n * (1 + tb) + b + 5 * b * k
     got = run()
     want = plain()
     torch.cuda.synchronize()
     mism, err = max_abs_diff(got, want)
     case = {"kernel": name, "n": n, "timer": str(timer.dtype).replace("torch.", ""), "k": k,
             "mismatches": mism, "max_abs_err": err}
+    if b != n:
+        case.update(rows=b, row0=row0)
     if mism:
         raise AssertionError(f"{name} disagrees with its plain version: {case}")
     if not timed:
         return case, None
     per_live, per_dead = OPS_PER_CELL[name]
-    ops = (live * per_live + (n - live) * per_dead) * n
+    ops = (live * per_live + (b - live) * per_dead) * n
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
-    floor_ms, grid = launch_floor_ms(name, n)
+    floor_ms, grid = launch_floor_ms(name, n, b)
     row = {
         "cell": timed, "shape": case, "rows_alive": live,
         "kernel_ms": time_ms(run, 20),
@@ -451,7 +482,7 @@ def measure(name, n, k, state, timer, alive, idv, timed) -> tuple[dict, dict | N
         "library_ms": None,
     }
     if name == "fused_oldest_k":
-        keys = oldest_k_key_plane(state, timer, alive)
+        keys = oldest_k_key_plane(state, timer, alive, row0)
         top = lambda: torch.topk(keys, k, dim=-1, largest=False, sorted=True)  # noqa: E731
         vals, cols = top()
         ok = vals != torch.iinfo(torch.int64).max
@@ -498,6 +529,21 @@ def phase_kernels() -> dict:
         if row:
             rows.append({"kernel": name, **row})
         del state, timer, alive, idv
+    # A rank's rows of the churn's mesh: [N/4, N] at row0 = N/4, N/2, 3N/4
+    # (the row offset a sharded tick gives every kernel but rank 0's), each
+    # bit-exact and timed as the whole-mesh shapes are. The card runs one
+    # rank, so these shapes are on no run of the smoke ("row_slice").
+    n = ROW_SLICE_N
+    state, timer, alive, idv = kernel_inputs(n, i32, gen)
+    for name, k in (("fused_fp_idv", 0), ("fused_suspicion", 0), ("fused_oldest_k", 5)):
+        for row0 in (n // 4, n // 2, 3 * n // 4):
+            sl = slice(row0, row0 + n // 4)
+            case, row = measure(name, n, k, state[sl], timer[sl], alive[sl], idv[sl],
+                                "row_slice", row0)
+            cases.append(case)
+            if row:
+                rows.append({"kernel": name, **row})
+    del state, timer, alive, idv
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "tolerance": "bit-exact", "cases": cases, "timed": rows})
     return {"rows": rows, "cases": cases}
@@ -523,6 +569,166 @@ def phase_kernels_churn_state(final) -> dict:
     return {"rows": rows, "cases": cases}
 
 
+# ------------------------------------------------------------------ sharded
+
+SHARDED_CHURN_TICKS = 16
+SHARDED_WARP_N = 1024
+SHARDED_WARP_TICKS = 256
+SHARDED_SWEEP = ("--ensemble", "16", "--n", "1024", "--seeds-only", "--max-ticks", "16")
+
+
+def phase_sharded(boot, boot_final) -> dict:
+    """The multi-device layer (``parallel/``) on the card's one rank: a
+    one-rank NCCL group made here, every collective of the row-sharded tick
+    called on it, destroyed at the end. Config 3's churn for its first 16
+    ticks, all kernel flags on, each tick of the sharded tick held bit-equal
+    to the dense tick (launches counted around the sharded ticks only); the
+    N = 16,384 boot through ``run_until_converged_sharded``, equal to the
+    ``boot`` phase in ticks and state; a ``save_async`` / ``load_orbax``
+    round trip of the churn's sharded state; ``run_warped(mesh=)`` over 256
+    ticks of a converged N = 1,024 mesh, equal to the sharded dense run;
+    the sweep with ``--shard ensemble``; the dryrun's ``sharded`` arm."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from kaboodle_tpu_torch import checkpoint
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.fleet import bench as fleet_bench
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.parallel import (
+        gather_state,
+        make_mesh,
+        make_sharded_tick,
+        run_until_converged_sharded,
+        shard_inputs,
+        shard_state,
+    )
+    from kaboodle_tpu_torch.phasegraph import dryrun
+    from kaboodle_tpu_torch.sim import init_state
+    from kaboodle_tpu_torch.sim.kernel import make_tick_fn
+    from kaboodle_tpu_torch.sim.state import idle_inputs
+    from kaboodle_tpu_torch.warp.runner import WarpLedger, run_warped
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    out = {"phase": "sharded", "mesh": str(mesh), "backend": str(dist.get_backend()),
+           "world": dist.get_world_size()}
+
+    # Config 3's churn: the sharded tick against the dense tick, tick by tick.
+    sc, make, _ = churn_case()
+    cfg = all_kernels_cfg()
+    inputs = sc.build()
+    dense_tick, sh_tick = make_tick_fn(cfg, faulty=True), make_sharded_tick(cfg, mesh)
+    a = make()
+    b, sin = shard_state(a, mesh), shard_inputs(inputs, mesh, stacked=True)
+    launches = {k: 0 for k in _cuda.KERNELS}
+    bad, t_dense, t_sharded = [], 0.0, 0.0
+    for t in range(SHARDED_CHURN_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, ma = dense_tick(a, inputs.at(t))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _cuda.reset_launches()
+        b, mb = sh_tick(b, sin.at(t))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for k, v in counts().items():
+            launches[k] += v
+        t_dense, t_sharded = t_dense + t1 - t0, t_sharded + t2 - t1
+        diff = state_diff(a, b) + [f.name for f in dataclasses.fields(ma)
+                                   if not torch.equal(getattr(ma, f.name), getattr(mb, f.name))]
+        if diff:
+            bad.append({"tick": t, "fields": diff})
+    out["churn"] = {"n": sc.n, "ticks": SHARDED_CHURN_TICKS, "dense_s": t_dense,
+                    "sharded_s": t_sharded, "mismatched_ticks": bad, "launches": launches}
+    if bad:
+        raise AssertionError(f"sharded churn != dense churn: {bad}")
+    require_launches("sharded_churn", launches, CHURN_KERNELS)
+
+    # save_async / load_orbax of the sharded churn state (DCP), in the checkout.
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        handle = checkpoint.save_async(Path(tmp) / "dcp", b, mesh=mesh)
+        returned = time.perf_counter() - t0
+        handle.wait_until_finished()
+        saved = time.perf_counter() - t0
+        template = init_state(sc.n, device="meta")
+        back = checkpoint.load_orbax(Path(tmp) / "dcp", template, mesh=mesh)
+        torch.cuda.synchronize()
+        loaded = time.perf_counter() - t0 - saved
+    out["checkpoint"] = {"save_returned_s": returned, "save_s": saved, "load_s": loaded,
+                         "mismatches": state_diff(b, back)}
+    if out["checkpoint"]["mismatches"]:
+        raise AssertionError(f"save_async/load_orbax round trip: {out['checkpoint']}")
+    del a, b, back, sin, inputs
+    torch.cuda.empty_cache()
+
+    # The N = 16,384 boot, sharded: the boot phase's ticks and state.
+    make_boot, _ = boot_case()
+    st = shard_state(make_boot(), mesh)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    final, ticks, conv = run_until_converged_sharded(st, all_kernels_cfg(), mesh, max_ticks=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    boot_launches = counts()
+    diff = state_diff(to_host(gather_state(final, mesh)), boot_final)
+    out["boot"] = {"n": 16384, "ticks_run": ticks, "converged": conv, "wall_s": wall,
+                   "boot_phase_wall_s": boot["wall_s"], "mismatches": diff,
+                   "launches": boot_launches}
+    if (ticks, conv) != (boot["ticks_run"], boot["converged"]) or diff:
+        raise AssertionError(f"sharded boot != boot: {out['boot']}")
+    require_launches("sharded_boot", boot_launches, BOOT_KERNELS)
+    del st, final
+    torch.cuda.empty_cache()
+
+    # run_warped(mesh=) on a converged mesh against the sharded dense run.
+    wcfg = SwimConfig()
+    n = SHARDED_WARP_N
+    conv_st = shard_state(init_state(n, seed=5, ring_contacts=n - 1, announced=True), mesh)
+    led = WarpLedger()
+    t0 = time.perf_counter()
+    warped, ran, wconv = run_warped(conv_st, wcfg, SHARDED_WARP_TICKS, ledger=led, mesh=mesh)
+    torch.cuda.synchronize()
+    warp_s = time.perf_counter() - t0
+    tick = make_sharded_tick(wcfg, mesh, faulty=False)
+    idle = idle_inputs(n)
+    ref = conv_st
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_WARP_TICKS):
+        ref = tick(ref, idle)[0]
+    torch.cuda.synchronize()
+    out["warp"] = {"n": n, "ticks": SHARDED_WARP_TICKS, "warp_s": warp_s,
+                   "dense_s": time.perf_counter() - t0, "converged": wconv,
+                   "engines": sorted({r["engine"] for r in led.spans}),
+                   "mismatches": state_diff(ref, warped)}
+    if out["warp"]["mismatches"] or ran != SHARDED_WARP_TICKS or not wconv:
+        raise AssertionError(f"run_warped(mesh=) != sharded dense: {out['warp']}")
+
+    # The sweep with --shard ensemble, and the dryrun's sharded arm (both
+    # print tables: kept out of the smoke's lines).
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = fleet_bench.run_sweep(fleet_bench.build_parser().parse_args(
+            [*SHARDED_SWEEP, "--shard", "ensemble"]))
+        rc = dryrun.main(["--n", "32"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["sweep"] = {k: line[k] for k in ("sharded", "ensemble", "n_peers",
+                                         "converged_fraction", "quantiles", "wall_s")}
+    out["dryrun"] = {"rc": rc, "engines": report["engines"]}
+    if not line["sharded"] or rc != 0 or report["engines"].get("sharded") != "ok":
+        raise AssertionError(f"sweep or dryrun: {out['sweep']} {out['dryrun']}")
+    dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 # ----------------------------------------------------------------- main path
 
 
@@ -536,8 +742,9 @@ def counts() -> dict:
 # ``cell`` of phase ``kernels``): the N = 16,384 lean int16 state, the
 # N = 8,192 full state and the N = 1,024 full state of the warp drain.
 SHAPE_RUNS = {
-    "boot": ("boot", "telemetry_boot", "warp_window_dense"),
-    "churn": ("churn", "telemetry_churn", "facade", "checkpoint_resume"),
+    "boot": ("boot", "telemetry_boot", "warp_window_dense", "sharded_boot"),
+    "churn": ("churn", "telemetry_churn", "facade", "checkpoint_resume", "sharded_churn"),
+    "row_slice": (),
     "churn_final_state": ("churn", "telemetry_churn", "facade", "checkpoint_resume"),
     "warp_drain": ("warp_drain_churn", "warp_drain_dense", "warp_drain_warp", "warp_drain_bank",
                    "warp_drain_distributional"),
@@ -1534,9 +1741,10 @@ def phase_fleet_parity(boot_res, sweep_res, sweep_line) -> dict:
 # 256-tick hybrid span at N = 16,384.
 WINDOW_N = 16384
 WINDOW_K = 256
-# BENCH_warp3.json's drain: N = 1,024, 8,192 ticks (churn half, calm half).
+# BENCH_warp3.json's drain: N = 1,024 (churn half, calm half), cut from its
+# 8,192 ticks to 4,096 when the sharded phase took the smoke past its budget.
 DRAIN_N = 1024
-DRAIN_TICKS = 8192
+DRAIN_TICKS = 4096
 WARP_FLEET_N = 1024
 WARP_FLEET_TICKS = 512
 # Members of the warped fleet: converged, mid-drain, mid-boot.
@@ -2866,7 +3074,7 @@ CLI_SWEEP = ("fleet", "--ensemble", str(CLI_SWEEP_E), "--n", "1024", "--sweep",
              "drop_rate=0:0.3:4", "--max-ticks", "32")
 CLI_DRYRUNS = (("phasegraph_n32", ("--n", "32")),
                ("phasegraph_n1024", ("--n", "1024", "--ensemble", "8")))
-CLI_ENGINES = {"chunked", "fleet", "fused", "warp", "hybrid", "hybrid_masked"}
+CLI_ENGINES = {"chunked", "sharded", "fleet", "fused", "warp", "hybrid", "hybrid_masked"}
 
 
 def phase_cli(device="cuda") -> dict:
@@ -2970,6 +3178,7 @@ def main() -> int:
     churn_state = phase_kernels_churn_state(final)
     final, churn_metrics = to_host(final), to_host(churn_metrics)
     tele = phase_telemetry(churn, final, churn_metrics, boot, boot_final)
+    shard = phase_sharded(boot, boot_final)
     del boot_final, churn_metrics
     phase_parity()
     facade = phase_facade()
@@ -3001,7 +3210,9 @@ def main() -> int:
     # required of them.
     runs = {"boot": boot["launches"], "churn": churn["launches"],
             "telemetry_churn": tele["churn"]["launches"],
-            "telemetry_boot": tele["boot"]["launches"], "facade": facade["launches"],
+            "telemetry_boot": tele["boot"]["launches"],
+            "sharded_churn": shard["churn"]["launches"], "sharded_boot": shard["boot"]["launches"],
+            "facade": facade["launches"],
             "checkpoint_resume": ckpt["launches_resumed"],
             "chunked_boot": cboot["launches"], "chunked_faulty": cfaulty["launches"],
             "fleet_boot": fboot["launches"], "fleet_sweep": fsweep["launches"],

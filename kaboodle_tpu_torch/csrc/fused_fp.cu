@@ -86,11 +86,12 @@ __device__ __forceinline__ void fold16(const Words<int8_t>& s, H h, uint32_t& ac
 template <bool kIdv, int R>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_fp_kernel(const int8_t* __restrict__ state, const uint32_t* __restrict__ ident,
-                uint32_t* __restrict__ fp, int32_t* __restrict__ cnt, int n, int vec) {
+                uint32_t* __restrict__ fp, int32_t* __restrict__ cnt, int n_rows, int n,
+                int vec) {
   const int lane = threadIdx.x & 31;
   const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
-  if (row0 >= n) return;  // the whole warp: nothing below waits on the block
-  const int rows = min(R, n - row0);
+  if (row0 >= n_rows) return;  // the whole warp: nothing below waits on the block
+  const int rows = min(R, n_rows - row0);
   const int8_t* sband = state + static_cast<size_t>(row0) * n;
   const uint32_t* iband = ident + (kIdv ? static_cast<size_t>(row0) * n : 0);
   uint32_t acc[R];
@@ -155,40 +156,46 @@ fused_fp_kernel(const int8_t* __restrict__ state, const uint32_t* __restrict__ i
 int band(int n) { return n < kLongN ? 1 : kBand; }
 
 template <bool kIdv>
-void launch(const int8_t* s, const uint32_t* id, uint32_t* f, int32_t* c, int n, int vec,
-            int blocks, int threads, cudaStream_t st) {
+void launch(const int8_t* s, const uint32_t* id, uint32_t* f, int32_t* c, int n_rows, int n,
+            int vec, int blocks, int threads, cudaStream_t st) {
   if (band(n) == 1) {
-    fused_fp_kernel<kIdv, 1><<<blocks, threads, 0, st>>>(s, id, f, c, n, vec);
+    fused_fp_kernel<kIdv, 1><<<blocks, threads, 0, st>>>(s, id, f, c, n_rows, n, vec);
   } else {
-    fused_fp_kernel<kIdv, kBand><<<blocks, threads, 0, st>>>(s, id, f, c, n, vec);
+    fused_fp_kernel<kIdv, kBand><<<blocks, threads, 0, st>>>(s, id, f, c, n_rows, n, vec);
   }
+}
+
+// The grid and block of a launch over n_rows rows of n cells.
+void rows_shape(int n_rows, int n, int* blocks, int* threads) {
+  const int rows_per_block = kWarps * band(n);
+  *blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  *threads = kWarps * 32;
 }
 
 }  // namespace
 
 // The grid and block of a launch at n (for the launch floor).
 extern "C" void kb_launch_shape(int n, int* blocks, int* threads) {
-  const int rows_per_block = kWarps * band(n);
-  *blocks = (n + rows_per_block - 1) / rows_per_block;
-  *threads = kWarps * 32;
+  rows_shape(n, n, blocks, threads);
 }
 
-// state int8 [n, n]; ident uint32 [n, n] (idv != 0) or uint32 [n] record
-// hashes; outputs fp uint32 [n], cnt int32 [n]. Returns cudaGetLastError().
+// state int8 [n_rows, n] (a whole mesh, or a rank's rows of one); ident
+// uint32 [n_rows, n] (idv != 0) or uint32 [n] record hashes; outputs fp
+// uint32 [n_rows], cnt int32 [n_rows]. Returns cudaGetLastError().
 extern "C" int kb_fused_fp(const void* state, const void* ident, void* fp, void* cnt,
-                           int n, int idv, int vec, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                           int n_rows, int n, int idv, int vec, void* stream) {
+  if (n_rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int blocks, threads;
-  kb_launch_shape(n, &blocks, &threads);
+  rows_shape(n_rows, n, &blocks, &threads);
   const auto* s = static_cast<const int8_t*>(state);
   const auto* id = static_cast<const uint32_t*>(ident);
   auto* f = static_cast<uint32_t*>(fp);
   auto* c = static_cast<int32_t*>(cnt);
   auto st = static_cast<cudaStream_t>(stream);
   if (idv) {
-    launch<true>(s, id, f, c, n, vec, blocks, threads, st);
+    launch<true>(s, id, f, c, n_rows, n, vec, blocks, threads, st);
   } else {
-    launch<false>(s, id, f, c, n, vec, blocks, threads, st);
+    launch<false>(s, id, f, c, n_rows, n, vec, blocks, threads, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -194,11 +194,13 @@ template <typename TT, typename K>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_oldest_k_kernel(const int8_t* __restrict__ state, const TT* __restrict__ timer,
                       const uint8_t* __restrict__ alive, int32_t* __restrict__ out_idx,
-                      uint8_t* __restrict__ out_valid, int n, int k, int vec, int tmax) {
+                      uint8_t* __restrict__ out_valid, int n_rows, int row0, int n, int k,
+                      int vec, int tmax) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kWarps + warp;
-  if (row >= n) return;  // the whole warp: nothing below waits on the block
+  if (row >= n_rows) return;  // the whole warp: nothing below waits on the block
+  const int diag = row0 + row;  // the row's own column: its peer index
   const int8_t* srow = state + static_cast<size_t>(row) * n;
   const TT* trow = timer + static_cast<size_t>(row) * n;
   int32_t* irow = out_idx + static_cast<size_t>(row) * k;
@@ -210,11 +212,11 @@ fused_oldest_k_kernel(const int8_t* __restrict__ state, const TT* __restrict__ t
     wl.w = min(32, k - r0);
     if (!done) {
       if (vec) {
-        if (r0 == 0) scan_vec<TT, K, false>(srow, trow, n, row, tmax, lo, wl, lane);
-        else scan_vec<TT, K, true>(srow, trow, n, row, tmax, lo, wl, lane);
+        if (r0 == 0) scan_vec<TT, K, false>(srow, trow, n, diag, tmax, lo, wl, lane);
+        else scan_vec<TT, K, true>(srow, trow, n, diag, tmax, lo, wl, lane);
       } else {
-        if (r0 == 0) scan_scalar<TT, K, false>(srow, trow, n, row, tmax, lo, wl, lane);
-        else scan_scalar<TT, K, true>(srow, trow, n, row, tmax, lo, wl, lane);
+        if (r0 == 0) scan_scalar<TT, K, false>(srow, trow, n, diag, tmax, lo, wl, lane);
+        else scan_scalar<TT, K, true>(srow, trow, n, diag, tmax, lo, wl, lane);
       }
       done = wl.thr == WarpList<K>::kEmpty;  // fewer than w found: the row is exhausted
       lo = wl.thr + 1;
@@ -228,22 +230,26 @@ fused_oldest_k_kernel(const int8_t* __restrict__ state, const TT* __restrict__ t
 }
 
 template <typename TT, typename K>
-int launch(const void* s, const void* t, const uint8_t* a, int32_t* idx, uint8_t* valid, int n,
-           int k, int vec, int tmax, cudaStream_t st) {
-  const int blocks = (n + kWarps - 1) / kWarps;
+int launch(const void* s, const void* t, const uint8_t* a, int32_t* idx, uint8_t* valid,
+           int n_rows, int row0, int n, int k, int vec, int tmax, cudaStream_t st) {
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
   fused_oldest_k_kernel<TT, K><<<blocks, kWarps * 32, 0, st>>>(
-      static_cast<const int8_t*>(s), static_cast<const TT*>(t), a, idx, valid, n, k, vec, tmax);
+      static_cast<const int8_t*>(s), static_cast<const TT*>(t), a, idx, valid, n_rows, row0, n,
+      k, vec, tmax);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// state int8 [n, n]; timer int16 (timer_bytes 2) or int32 (4) [n, n];
-// alive bool [n]; outputs idx int32 [n, k], valid bool [n, k]; k >= 1.
+// state int8 [n_rows, n]; timer int16 (timer_bytes 2) or int32 (4)
+// [n_rows, n]: rows row0 .. row0 + n_rows - 1 of a mesh of n peers (all of
+// it with row0 0 and n_rows n); alive bool [n_rows]; outputs idx int32
+// [n_rows, k], valid bool [n_rows, k]; k >= 1.
 extern "C" int kb_fused_oldest_k(const void* state, const void* timer, int timer_bytes,
                                  const void* alive, int k, void* idx, void* valid,
-                                 int n, int vec, void* stream) {
-  if (n <= 0 || k < 1 || (timer_bytes != 2 && timer_bytes != 4)) {
+                                 int n_rows, int row0, int n, int vec, void* stream) {
+  if (n_rows <= 0 || n <= 0 || row0 < 0 || row0 + n_rows > n || k < 1 ||
+      (timer_bytes != 2 && timer_bytes != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* a = static_cast<const uint8_t*>(alive);
@@ -251,10 +257,13 @@ extern "C" int kb_fused_oldest_k(const void* state, const void* timer, int timer
   auto* va = static_cast<uint8_t*>(valid);
   auto st = static_cast<cudaStream_t>(stream);
   if (timer_bytes == 4) {
-    return launch<int32_t, unsigned long long>(state, timer, a, ix, va, n, k, vec, INT32_MAX, st);
+    return launch<int32_t, unsigned long long>(state, timer, a, ix, va, n_rows, row0, n, k, vec,
+                                               INT32_MAX, st);
   }
   if (n <= 65536) {  // the column fits the key's low 16 bits
-    return launch<int16_t, unsigned>(state, timer, a, ix, va, n, k, vec, INT16_MAX, st);
+    return launch<int16_t, unsigned>(state, timer, a, ix, va, n_rows, row0, n, k, vec, INT16_MAX,
+                                     st);
   }
-  return launch<int16_t, unsigned long long>(state, timer, a, ix, va, n, k, vec, INT16_MAX, st);
+  return launch<int16_t, unsigned long long>(state, timer, a, ix, va, n_rows, row0, n, k, vec,
+                                             INT16_MAX, st);
 }

@@ -177,20 +177,21 @@ fused_suspicion_kernel(const int8_t* __restrict__ state, const TT* __restrict__ 
                        const uint8_t* __restrict__ alive, int thr,
                        int32_t* __restrict__ cnt, int32_t* __restrict__ jstar,
                        uint8_t* __restrict__ has_timed, uint8_t* __restrict__ has_cand,
-                       uint8_t* __restrict__ has_wfip, int n, int vec) {
+                       uint8_t* __restrict__ has_wfip, int n_rows, int row0, int n, int vec) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRows + (threadIdx.x >> 5);
-  if (row >= n) return;  // the whole warp: nothing below waits on the block
+  if (row >= n_rows) return;  // the whole warp: nothing below waits on the block
   const int8_t* srow = state + static_cast<size_t>(row) * n;
   const TT* trow = timer + static_cast<size_t>(row) * n;
   const bool live = alive[row] != 0;
+  const int diag = row0 + row;  // the row's own column: its peer index
   Acc acc;
   if (vec) {
-    if (live) scan_vec<TT, true, D>(srow, trow, n, row, lane, acc);
-    else scan_vec<TT, false, D>(srow, trow, n, row, lane, acc);
+    if (live) scan_vec<TT, true, D>(srow, trow, n, diag, lane, acc);
+    else scan_vec<TT, false, D>(srow, trow, n, diag, lane, acc);
   } else {
-    if (live) scan_scalar<TT, true>(srow, trow, n, row, lane, acc);
-    else scan_scalar<TT, false>(srow, trow, n, row, lane, acc);
+    if (live) scan_scalar<TT, true>(srow, trow, n, diag, lane, acc);
+    else scan_scalar<TT, false>(srow, trow, n, diag, lane, acc);
   }
   const int count = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(acc.count)));
   const unsigned flags = __reduce_or_sync(kFull, acc.flags());
@@ -210,15 +211,15 @@ fused_suspicion_kernel(const int8_t* __restrict__ state, const TT* __restrict__ 
 
 template <typename TT>
 void launch(const int8_t* s, const void* timer, const uint8_t* a, int thr, int32_t* c,
-            int32_t* js, uint8_t* ht, uint8_t* hc, uint8_t* hw, int n, int vec, int blocks,
-            int threads, cudaStream_t st) {
+            int32_t* js, uint8_t* ht, uint8_t* hc, uint8_t* hw, int n_rows, int row0, int n,
+            int vec, int blocks, int threads, cudaStream_t st) {
   const auto* t = static_cast<const TT*>(timer);
   if (n < kLongN) {
     fused_suspicion_kernel<TT, kDepthShort><<<blocks, threads, 0, st>>>(
-        s, t, a, thr, c, js, ht, hc, hw, n, vec);
+        s, t, a, thr, c, js, ht, hc, hw, n_rows, row0, n, vec);
   } else {
     fused_suspicion_kernel<TT, kDepthLong><<<blocks, threads, 0, st>>>(
-        s, t, a, thr, c, js, ht, hc, hw, n, vec);
+        s, t, a, thr, c, js, ht, hc, hw, n_rows, row0, n, vec);
   }
 }
 
@@ -230,17 +231,20 @@ extern "C" void kb_launch_shape(int n, int* blocks, int* threads) {
   *threads = kRows * 32;
 }
 
-// state int8 [n, n]; timer int16 (timer_bytes 2) or int32 (4) [n, n];
-// alive bool [n]; outputs int32 [n] x2, bool [n] x3.
+// state int8 [n_rows, n]; timer int16 (timer_bytes 2) or int32 (4)
+// [n_rows, n]: rows row0 .. row0 + n_rows - 1 of a mesh of n peers (all of
+// it with row0 0 and n_rows n); alive bool [n_rows]; outputs int32
+// [n_rows] x2, bool [n_rows] x3.
 extern "C" int kb_fused_suspicion(const void* state, const void* timer, int timer_bytes,
                                   const void* alive, int thr, void* cnt, void* jstar,
                                   void* has_timed, void* has_cand, void* has_wfip,
-                                  int n, int vec, void* stream) {
-  if (n <= 0 || (timer_bytes != 2 && timer_bytes != 4)) {
+                                  int n_rows, int row0, int n, int vec, void* stream) {
+  if (n_rows <= 0 || n <= 0 || row0 < 0 || row0 + n_rows > n ||
+      (timer_bytes != 2 && timer_bytes != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int blocks, threads;
-  kb_launch_shape(n, &blocks, &threads);
+  kb_launch_shape(n_rows, &blocks, &threads);
   const auto* s = static_cast<const int8_t*>(state);
   const auto* a = static_cast<const uint8_t*>(alive);
   auto* c = static_cast<int32_t*>(cnt);
@@ -250,9 +254,11 @@ extern "C" int kb_fused_suspicion(const void* state, const void* timer, int time
   auto* hw = static_cast<uint8_t*>(has_wfip);
   auto st = static_cast<cudaStream_t>(stream);
   if (timer_bytes == 2) {
-    launch<int16_t>(s, timer, a, thr, c, js, ht, hc, hw, n, vec, blocks, threads, st);
+    launch<int16_t>(s, timer, a, thr, c, js, ht, hc, hw, n_rows, row0, n, vec, blocks,
+                    threads, st);
   } else {
-    launch<int32_t>(s, timer, a, thr, c, js, ht, hc, hw, n, vec, blocks, threads, st);
+    launch<int32_t>(s, timer, a, thr, c, js, ht, hc, hw, n_rows, row0, n, vec, blocks,
+                    threads, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

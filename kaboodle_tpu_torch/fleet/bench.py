@@ -23,8 +23,10 @@ writes it as a run manifest too (one ``run`` record plus one
 ``sweep_bucket`` record per knob value). Exit code 0 for any completed
 measurement: a zero converged fraction is a valid result for a harsh
 regime, not a failure. Runs on the card unless ``--device`` names another
-(it takes the place of the JAX sweep's ``--platform``). ``--shard``
-waits for the port's multi-device slice::
+(it takes the place of the JAX sweep's ``--platform``). ``--shard
+ensemble`` splits the members over the job's ranks
+(``fleet/sharding.py``; ``auto`` does so when the job has more than one
+rank and E divides), and the line's ``"sharded"`` says which ran::
 
     python -m kaboodle_tpu_torch fleet --sweep drop_rate=0:0.3:16 --ensemble 1024
     python -m kaboodle_tpu_torch.fleet.bench --ensemble 64 --n 64 --device cpu
@@ -96,6 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=[0.5, 0.9, 0.99])
     p.add_argument("--deterministic", action="store_true",
                    help="deterministic protocol draws (A/B arm pin)")
+    p.add_argument("--shard", choices=["auto", "none", "ensemble"], default="auto",
+                   help="shard the ensemble axis over the job's ranks (auto: when "
+                   "the job has more than one rank and E divides; a one-process "
+                   "job runs a one-rank mesh with 'ensemble')")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run there)")
     p.add_argument("--telemetry", nargs="?", const="fleet-telemetry.jsonl",
@@ -104,6 +110,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "(telemetry/manifest.py schema; one 'run' record "
                         "plus one 'sweep_bucket' record per knob value)")
     return p
+
+
+def _job_ranks() -> int:
+    """Ranks of this job: the process group's, or ``torchrun``'s
+    ``WORLD_SIZE`` before one is made; 1 for a plain process."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def sweep(args):
@@ -149,9 +167,32 @@ def sweep(args):
         ring_contacts=0 if args.boot == "broadcast" else 2,
     )
     faulty = bool(np.any(knob > 0))
-    t0 = time.perf_counter()
-    fleet, conv_tick, done = run_fleet_until_converged(
-        fleet, cfg, max_ticks=args.max_ticks, faulty=faulty)
+    n_dev = _job_ranks()
+    sharded = (args.shard == "ensemble"
+               or (args.shard == "auto" and n_dev > 1 and ensemble % n_dev == 0))
+    if sharded:
+        from kaboodle_tpu_torch.fleet.sharding import (
+            ENSEMBLE_AXIS,
+            gather_fleet,
+            make_fleet_mesh,
+            run_fleet_until_converged_sharded,
+            shard_fleet,
+        )
+        from kaboodle_tpu_torch.parallel.collectives import gather_rows
+
+        mesh = make_fleet_mesh(device=args.device)
+        fleet = shard_fleet(fleet, mesh)
+        t0 = time.perf_counter()
+        fleet, conv_tick, done = run_fleet_until_converged_sharded(
+            fleet, cfg, mesh, max_ticks=args.max_ticks, faulty=faulty)
+        # Every rank's members, for the statistics of the whole ensemble.
+        group = mesh.get_group(ENSEMBLE_AXIS)
+        conv_tick, done = gather_rows(conv_tick, group), gather_rows(done, group)
+        fleet = gather_fleet(fleet, mesh)
+    else:
+        t0 = time.perf_counter()
+        fleet, conv_tick, done = run_fleet_until_converged(
+            fleet, cfg, max_ticks=args.max_ticks, faulty=faulty)
 
     qs = tuple(args.quantiles)
     overall_q = convergence_quantiles(conv_tick, done, qs=qs)
@@ -194,7 +235,7 @@ def sweep(args):
         "boot": args.boot,
         "sweep": args.sweep if grid is not None else None,
         "faulty": faulty,
-        "sharded": False,
+        "sharded": bool(sharded),
         "backend": dev.type,
         "converged_fraction": round(conv_frac, 4),
         "quantiles": {f"p{int(q * 100)}": round(float(v), 2)

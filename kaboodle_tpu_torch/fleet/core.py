@@ -232,6 +232,8 @@ def fleet_converge_loop(
     vtick,
     idle: TickInputs,
     max_ticks: int,
+    group=None,
+    any_group=None,
 ) -> tuple[MeshState, torch.Tensor, torch.Tensor]:
     """Masked loop of a fleet tick until every member agrees.
 
@@ -245,12 +247,19 @@ def fleet_converge_loop(
     tick count at which member e converged (== the standalone run's
     ``ticks_run``), ``max_ticks`` where it never did. Agreement is also
     tested at entry: a member converged at tick 0 freezes at once and
-    reports ``conv_tick == 0``."""
-    done = state_agreement(mesh)[0]
+    reports ``conv_tick == 0``.
+
+    On a mesh of ranks (``fleet/sharding.py``), ``group`` is the row group
+    the members' rows are sharded over (agreement all-reduced over it) and
+    ``any_group`` the group the loop's ``any(~done)`` is all-reduced over,
+    so every rank runs the same ticks."""
+    from kaboodle_tpu_torch.parallel.collectives import global_any
+
+    done = state_agreement(mesh, group)[0]
     conv_tick = torch.where(
         done, 0, torch.full_like(done, max_ticks, dtype=torch.int32)).to(torch.int32)
     i = 0
-    while i < max_ticks and bool((~done).any()):
+    while i < max_ticks and bool(global_any(~done, any_group)):
         new, m = vtick(mesh, idle)
         mesh = freeze_members(~done, mesh, new)
         conv_tick = torch.where(~done & m.converged, i + 1, conv_tick).to(torch.int32)

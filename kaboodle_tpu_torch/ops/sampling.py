@@ -65,11 +65,13 @@ def choose_one_of_oldest_k(
     key: threefry.Key,
     deterministic: bool = False,
     method: str = "iter",
+    row0: int = 0,
 ) -> torch.Tensor:
     """Per row: uniform choice among the k eligible entries with the smallest
     timer (ties toward the lower index). int32 ``[..., N]``, -1 where none.
 
-    The ineligibility sentinel is the timer dtype's max (int16 in lean mode)."""
+    The ineligibility sentinel is the timer dtype's max (int16 in lean mode).
+    ``row0`` is the first row's index in the whole draw (a rank's rows)."""
     n = timer.shape[-1]
     k = min(k, n)
     tmax = torch.iinfo(timer.dtype).max
@@ -79,7 +81,7 @@ def choose_one_of_oldest_k(
         return torch.where(valid[..., 0], idx[..., 0], -1).to(torch.int32)
     pick = _stable_k_smallest_iter if method == "iter" else _stable_k_smallest_topk
     idx, valid = pick(scores, k, tmax)
-    return choose_among_candidates(idx, valid, key, deterministic)
+    return choose_among_candidates(idx, valid, key, deterministic, row0)
 
 
 def choose_among_candidates(
@@ -87,11 +89,14 @@ def choose_among_candidates(
     valid: torch.Tensor,
     key: threefry.Key,
     deterministic: bool = False,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Uniform pick per row from ``(idx, valid)`` candidate lists ``[..., N, k]``."""
+    """Uniform pick per row from ``(idx, valid)`` candidate lists ``[..., N, k]``;
+    the rows are rows ``row0 ..`` of the draw."""
     if deterministic:
         return pick_candidate(idx, valid, None)
-    return pick_candidate(idx, valid, threefry.uniform(key, (idx.shape[-2],), idx.device))
+    u = threefry.uniform(key, (idx.shape[-2],), idx.device, row0)
+    return pick_candidate(idx, valid, u)
 
 
 def pick_candidate(idx: torch.Tensor, valid: torch.Tensor, u: torch.Tensor | None) -> torch.Tensor:
@@ -112,12 +117,13 @@ def choose_k_members(
     k: int,
     key: threefry.Key,
     deterministic: bool = False,
+    row0: int = 0,
 ):
     """Per row: up to ``k`` distinct members of the mask, uniformly at random
     (Gumbel-top-k, the reference's ``choose_multiple``). Deterministic mode
     takes the lowest indices. Returns ``(idx int32 [..., N, k], valid bool
     [..., N, k])``; a leading ensemble axis of ``eligible`` goes with ``[E]``
-    key words.
+    key words. The rows are rows ``row0 ..`` of the dense draw.
 
     Ranks on ``(eligible, Gumbel order bits, -index)``, computed in chunks
     (``threefry.draw_chunks``) so no ``[N, N]`` int64 key is ever whole."""
@@ -129,7 +135,7 @@ def choose_k_members(
     valid = torch.empty((*batch, n_rows, k), dtype=torch.bool, device=dev)
     if deterministic:  # no draw: chunk by the mask's own shape
         key = (torch.zeros(batch, dtype=torch.int64, device=dev),) * 2 if batch else (0, 0)
-    for part, at, rows in threefry.draw_chunks(key, n_rows, n):
+    for part, at, rows in threefry.draw_chunks(key, n_rows, n, row0):
         el = eligible[at]
         if deterministic:
             v = el.to(torch.int64)
@@ -147,20 +153,22 @@ def bernoulli_matrix(
     prob: torch.Tensor,
     shape: tuple[int, ...],
     deterministic: bool = False,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Bernoulli draws with per-element (broadcastable) float32 probabilities.
 
     ``shape`` is one mesh's draw; under ``[E]`` key words the result is
     ``[E, *shape]``. Deterministic mode: every draw with positive
-    probability succeeds."""
+    probability succeeds. ``row0`` places ``shape``'s rows at rows
+    ``row0 ..`` of the dense draw (a rank's rows)."""
     full = threefry.batch_shape(key) + tuple(shape)
     if deterministic:
         return (prob > 0).expand(full)
     prob = prob.expand(full)
     if len(shape) == 1:
-        return threefry.uniform(key, shape, prob.device) < prob
+        return threefry.uniform(key, shape, prob.device, row0) < prob
     out = torch.empty(full, dtype=torch.bool, device=prob.device)
-    for part, at, rows in threefry.draw_chunks(key, *shape):
+    for part, at, rows in threefry.draw_chunks(key, *shape, row0=row0):
         u = threefry.bits_to_uniform(threefry.random_bits(part, shape, prob.device, rows))
         out[at] = u < prob[at]
     return out

@@ -107,10 +107,11 @@ def random_bits(key: Key, shape: tuple[int, ...], device, rows=None) -> torch.Te
     """32 random bits per cell (int64, unsigned value) of a draw of ``shape``,
     with the key's ensemble axis in front.
 
-    ``rows=(r0, r1)`` returns only rows ``r0:r1`` of a 2-D draw -- the same
-    bits as slicing the whole draw."""
+    ``rows=(r0, r1)`` returns only rows ``r0:r1`` of the draw (the cells
+    ``r0:r1`` of a 1-D one) -- the same bits as slicing the whole draw."""
     if len(shape) == 1:
-        return _bits_flat(key, 0, shape[0], device)
+        r0, r1 = rows if rows is not None else (0, shape[0])
+        return _bits_flat(key, r0, r1 - r0, device)
     n_rows, n_cols = shape
     r0, r1 = rows if rows is not None else (0, n_rows)
     flat = _bits_flat(key, r0 * n_cols, (r1 - r0) * n_cols, device)
@@ -130,44 +131,51 @@ def row_chunks(n_rows: int, n_cols: int):
         yield r0, min(n_rows, r0 + step)
 
 
-def draw_chunks(key: Key, n_rows: int, n_cols: int):
+def draw_chunks(key: Key, n_rows: int, n_cols: int, row0: int = 0):
     """Blocks of a 2-D draw of at most ``CHUNK_CELLS`` cells (one row chunk
     when the draw has more), as ``(key part, out index, (r0, r1))``: the
     block's draw is ``random_bits(key part, (n_rows, n_cols), dev, (r0,
     r1))`` and it lands at ``out[out index]`` of the ``batch + shape`` result.
     One mesh: row chunks. An ensemble: whole members while they fit, else
-    row chunks of one member at a time."""
+    row chunks of one member at a time.
+
+    ``row0`` places the ``n_rows`` rows at rows ``row0 ..`` of a taller
+    draw (a rank's rows of the dense draw): the yielded ``(r0, r1)`` are
+    the rows of that draw, the out index stays local."""
     batch = batch_shape(key)
     if not batch:
         for r0, r1 in row_chunks(n_rows, n_cols):
-            yield key, (slice(r0, r1),), (r0, r1)
+            yield key, (slice(r0, r1),), (row0 + r0, row0 + r1)
         return
     (members,) = batch
     per_member = n_rows * n_cols
     if per_member >= CHUNK_CELLS:
         for e in range(members):
             for r0, r1 in row_chunks(n_rows, n_cols):
-                yield _key_slice(key, e, e + 1), (slice(e, e + 1), slice(r0, r1)), (r0, r1)
+                yield (_key_slice(key, e, e + 1), (slice(e, e + 1), slice(r0, r1)),
+                       (row0 + r0, row0 + r1))
         return
     step = CHUNK_CELLS // max(per_member, 1)
     for e0 in range(0, members, step):
         e1 = min(members, e0 + step)
-        yield _key_slice(key, e0, e1), (slice(e0, e1),), (0, n_rows)
+        yield _key_slice(key, e0, e1), (slice(e0, e1),), (row0, row0 + n_rows)
 
 
-def uniform(key: Key, shape: tuple[int, ...], device) -> torch.Tensor:
+def uniform(key: Key, shape: tuple[int, ...], device, row0: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype=float32)`` (under ``[E]`` keys,
     ``[E, *shape]``: each member's own draw), for a shape of any rank.
 
     A cell's counter is its flat (row-major) index, so a draw of rank 3 or
-    more is the 2-D draw ``(shape[0], prod(shape[1:]))`` reshaped."""
+    more is the 2-D draw ``(shape[0], prod(shape[1:]))`` reshaped. ``row0``
+    draws ``shape``'s rows as rows ``row0 ..`` of a taller draw (cells
+    ``row0 ..`` of a 1-D one): a rank's slice of the dense draw."""
     if len(shape) > 2:
-        flat = uniform(key, (shape[0], math.prod(shape[1:])), device)
+        flat = uniform(key, (shape[0], math.prod(shape[1:])), device, row0)
         return flat.view(*batch_shape(key), *shape)
     if len(shape) == 1:
-        return bits_to_uniform(random_bits(key, shape, device))
+        return bits_to_uniform(random_bits(key, shape, device, (row0, row0 + shape[0])))
     out = torch.empty(batch_shape(key) + tuple(shape), dtype=torch.float32, device=device)
-    for part, at, rows in draw_chunks(key, *shape):
+    for part, at, rows in draw_chunks(key, *shape, row0=row0):
         out[at] = bits_to_uniform(random_bits(part, shape, device, rows))
     return out
 

@@ -11,6 +11,9 @@ dense       ``exec.py``'s full and fused programs under the per-tick
             dispatch (``make_dense_tick``); ``make_fused_tick`` is the
             fused program alone
 chunked     the row-blocked program (``make_chunked_tick`` -> blocked.py)
+sharded     the dense tick built with a mesh's row group
+            (``make_sharded_tick``): each rank its rows, the cross-row
+            reads through ``parallel/collectives.py``
 fleet       the dense tick over a leading ensemble axis
             (``make_fleet_tick``): the same tick function given ``[E, ...]``
             leaves, full program only
@@ -22,8 +25,6 @@ serve       the masked fleet converge chunk of a lane pool
 sparse      the blocked_topk ``[N, K]`` tick (``make_sparse_tick`` ->
             sparseplane/kernel.py)
 ==========  ==============================================================
-
-The JAX package's ``sharded`` engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,11 +37,15 @@ import torch
 
 from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.phasegraph.blocked import make_chunked_tick_fn
-from kaboodle_tpu_torch.phasegraph.exec import PALLAS_BATCH_ERROR, make_tick_fn
+from kaboodle_tpu_torch.phasegraph.exec import (
+    PALLAS_BATCH_ERROR,
+    dispatch_pred_terms,
+    make_tick_fn,
+)
 from kaboodle_tpu_torch.phasegraph.span import make_leap_fn
 
-# The engines this module builds (the JAX package's names).
-ENGINES = ("dense", "fused", "chunked", "fleet", "warp", "serve", "sparse")
+# The engines this module builds (the JAX package's names, in its order).
+ENGINES = ("dense", "fused", "chunked", "sharded", "fleet", "warp", "serve", "sparse")
 
 # The sparse program's tail passes and their ops, ``plan(build_graph(cfg,
 # faulty, layout="blocked_topk"), "sparse").tail`` of the JAX planner (the
@@ -81,6 +86,33 @@ def make_chunked_tick(
                                 boot_union=boot_union, telemetry=telemetry)
 
 
+def make_sharded_tick(
+    cfg: SwimConfig, mesh, faulty: bool = True, telemetry: bool = False
+) -> Callable:
+    """The dense tick over ``mesh``'s peer axis: each rank its rows.
+
+    The same tick function as :func:`make_dense_tick`, built with the
+    mesh's peer group: the dispatch predicate and every gate are all-reduced,
+    both programs run on the rank's rows, and the cross-row reads are the
+    collectives of ``parallel/collectives.py``. ``cfg`` passes through
+    unchanged, kernel flags included: the kernels run on the rank's rows.
+    Every output carry is checked to be the rank's rows
+    (``parallel.mesh.constrain_state``); ``st`` is the rank's rows of the
+    state (``parallel.mesh.shard_state``) and ``inp`` of the inputs."""
+    from kaboodle_tpu_torch.parallel.mesh import constrain_state, peer_group
+
+    tick = make_tick_fn(cfg, faulty=faulty, telemetry=telemetry, group=peer_group(mesh))
+
+    def sharded_tick(st, inp):
+        st, m = tick(st, inp)
+        return constrain_state(st, mesh), m
+
+    # The dense tick's dispatch predicate (pinned to the JAX planner's
+    # sharded tick by tests/test_torch_parallel.py).
+    sharded_tick.pred_terms = dispatch_pred_terms(cfg)
+    return sharded_tick
+
+
 def make_fleet_tick(
     cfg: SwimConfig, faulty: bool = True, telemetry: bool = False
 ) -> Callable:
@@ -116,13 +148,15 @@ def make_sparse_tick(cfg: SwimConfig, spec, faulty: bool = True) -> Callable:
     return tick
 
 
-def make_warp_leap(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = False) -> Callable:
+def make_warp_leap(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = False,
+                   group=None) -> Callable:
     """The span / hybrid program: k (near-)quiescent ticks as one pass.
 
     ``hybrid=True`` is the near-quiescent program (strict span + sterile
     anti-entropy); ``masked=True`` takes a per-member span length
-    ``k_m <= k``, so one call advances an ensemble to per-member horizons."""
-    return make_leap_fn(cfg, k, hybrid=hybrid, masked=masked)
+    ``k_m <= k``, so one call advances an ensemble to per-member horizons;
+    ``group`` builds the leap over a row group (each rank its rows)."""
+    return make_leap_fn(cfg, k, hybrid=hybrid, masked=masked, group=group)
 
 
 @dataclasses.dataclass

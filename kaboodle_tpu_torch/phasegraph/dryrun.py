@@ -2,12 +2,16 @@
 
 The port of ``kaboodle_tpu/phasegraph/dryrun.py``: each engine that
 ``phasegraph/derive.py`` builds from the one tick -- dense (full + fused
-dispatch), standalone fused, chunked (row-blocked), fleet (the tick over
+dispatch), standalone fused, chunked (row-blocked), sharded (each rank its
+rows, over the job's ranks), fleet (the tick over
 ``[E, ...]`` leaves), warp leap, hybrid leap and the masked hybrid leap --
 is built at toy N, runs real ticks, and its outputs are diffed bit for bit
 (``profiling.state_equal``) against the dense tick:
 
 - chunked: one faulty tick from the same state and inputs;
+- sharded: the same faulty tick over ``parallel.make_mesh``'s ranks (a
+  one-rank group in a plain process, R ranks under ``torchrun``), the
+  ranks' rows gathered;
 - fleet: member 0 of a fleet tick vs a standalone dense tick of the same
   member state (the full-program-only build vs the dispatched one);
 - fused: one steady tick on a converged mesh vs the dispatched build (the
@@ -17,8 +21,8 @@ is built at toy N, runs real ticks, and its outputs are diffed bit for bit
   identity.
 
 Any mismatch exits 1. It runs on the card unless ``--device`` names
-another. The JAX package's ``sharded`` arm waits for the port's
-multi-device slice and is not in ``engines``. The port has no planner: the
+another. A process group the dryrun made for its sharded arm is destroyed
+before it returns. The port has no planner: the
 ``plan full`` / ``plan fused`` lines come from the pass tables held as data
 (``telemetry/summary.py::PHASE_PROGRAMS``, the JAX planner's telemetry
 plans, pinned by a test) with the telemetry-only ``counters`` op taken out,
@@ -66,14 +70,17 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from kaboodle_tpu_torch.config import SwimConfig
     from kaboodle_tpu_torch.fleet.core import fleet_idle_inputs, init_fleet, member_state
+    from kaboodle_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_inputs, shard_state
     from kaboodle_tpu_torch.phasegraph.derive import (
         make_chunked_tick,
         make_dense_tick,
         make_fleet_tick,
         make_fused_tick,
+        make_sharded_tick,
         make_warp_leap,
     )
     from kaboodle_tpu_torch.profiling import state_equal
@@ -96,6 +103,15 @@ def main(argv=None) -> int:
     # chunked: same tick, row-blocked layout.
     st_c, m_c = make_chunked_tick(cfg, faulty=True, block=n // 2)(st, idle)
     results["chunked"] = state_equal(st_d, st_c) and state_equal(m_d, m_c)
+
+    # sharded: same tick, each rank its rows, the cross-row reads collectives.
+    own_group = not dist.is_initialized()
+    mesh = make_mesh(device=args.device)
+    st_s, m_s = make_sharded_tick(cfg, mesh, faulty=True)(shard_state(st, mesh),
+                                                          shard_inputs(idle, mesh))
+    results["sharded"] = state_equal(st_d, gather_state(st_s, mesh)) and state_equal(m_d, m_s)
+    if own_group:
+        dist.destroy_process_group()
 
     # fleet: member 0 of the fleet tick vs a standalone dense tick of the
     # same member state (the full-only build vs the dispatched one).

@@ -49,6 +49,19 @@ per-member helpers ``_take`` / ``_take_rows``. The tick and the draw keys
 are read on the device (``rng.state_draw_keys``), so only the gates fetch
 to the host -- and K3's threshold, an int argument of the kernel.
 
+``group=`` builds the row-sharded tick: the port of the JAX package's
+sharded twin (``parallel/mesh.py``), where GSPMD inserts the collectives.
+A rank holds rows ``row0 .. row0 + B - 1`` of every plane (``[.., B, N]``)
+and of every per-peer vector (``[.., B]``); ``tick`` and ``key`` are
+replicated. Each read across rows goes through ``parallel/collectives.py``
+-- the gathered vectors, the transposes, the ring contractions, the cell
+fetches, the scatters into other ranks' rows and the reductions of the
+metrics -- and every gate is a predicate over all ranks, so every rank takes
+the same branches and calls the same collectives in the same order. Every
+draw is the rank's rows of the dense draw, and the kernels run on the
+rank's rows; the bits are the dense tick's. With no group each helper is
+the identity and this is the dense tick.
+
 ``telemetry=True`` builds the same tick with protocol counters added
 (``telemetry/counters.py``): it returns ``(state, TickTelemetry(metrics,
 counters, fp))``, with the JAX package's counter definitions bit for bit.
@@ -72,7 +85,6 @@ from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k
 from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion
 from kaboodle_tpu_torch.ops.hashing import (
     as_u32,
-    fingerprint_agreement,
     peer_record_hash,
     wrap32,
     wrap_sum,
@@ -84,6 +96,7 @@ from kaboodle_tpu_torch.ops.sampling import (
     choose_k_members,
     choose_one_of_oldest_k,
 )
+from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.phasegraph import rng as pg_rng
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs, TickMetrics
 from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
@@ -173,10 +186,10 @@ def _scatter_or(dst: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, val: 
     """``dst[rows, cols] |= val`` per member, with -1-safe (clipped) indices.
 
     Only the True updates are written, so duplicate indices cannot let a
-    False overwrite a True."""
+    False overwrite a True. ``dst`` is ``[..., B, N]`` (rows local to it)."""
     n = dst.shape[-1]
     flat = rows.clamp(min=0).long() * n + cols.clamp(min=0).long()
-    flat = _member_offset(flat.expand(val.shape), tuple(dst.shape[:-2]), n * n)
+    flat = _member_offset(flat.expand(val.shape), tuple(dst.shape[:-2]), dst.shape[-2] * n)
     out = dst.clone()
     out.view(-1)[flat[val]] = True
     return out
@@ -197,14 +210,16 @@ def _add32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return wrap32(a.to(torch.int64) + b.to(torch.int64))
 
 
-def _drop_gate(ok: torch.Tensor, key: threefry.Key, rate: torch.Tensor) -> torch.Tensor:
+def _drop_gate(ok: torch.Tensor, key: threefry.Key, rate: torch.Tensor,
+               row0: int = 0) -> torch.Tensor:
     """``ok & (uniform(key, (n, n)) >= rate)``, drawn in chunks; per member
-    under ``[E]`` keys and rates (a rate of 0 keeps every edge: ``u >= 0``)."""
+    under ``[E]`` keys and rates (a rate of 0 keeps every edge: ``u >= 0``).
+    ``ok``'s rows are rows ``row0 ..`` of the draw."""
     out = ok.clone()
     draw = tuple(ok.shape[-2:])
     batched = rate.dim() > 0
     rate = rate[..., None, None]
-    for part, at, rows in threefry.draw_chunks(key, *draw):
+    for part, at, rows in threefry.draw_chunks(key, *draw, row0=row0):
         u = threefry.bits_to_uniform(threefry.random_bits(part, draw, ok.device, rows))
         out[at] &= u >= (rate[at[0]] if batched else rate)  # at[0]: the members
     return out
@@ -215,6 +230,7 @@ def make_tick_fn(
     faulty: bool = True,
     program: str | None = None,
     telemetry: bool = False,
+    group=None,
 ) -> Callable[[MeshState, TickInputs], tuple[MeshState, TickMetrics | TickTelemetry]]:
     """Build the tick function for a protocol config.
 
@@ -227,7 +243,11 @@ def make_tick_fn(
     ``(state, TickMetrics)`` (module docstring). The tick takes one mesh or
     an ensemble (leaves with a leading ``[E]`` axis; metrics and counters
     then ``[E]``, digests ``[E, N]``); an ensemble with a kernel flag on
-    raises ``ValueError``, the kernels taking one mesh.
+    raises ``ValueError``, the kernels taking one mesh. ``group`` (a
+    ``torch.distributed`` process group) builds the row-sharded tick over
+    its ranks (module docstring): the state and inputs are then each rank's
+    rows, and so are the digests; metrics and counters are the whole mesh's
+    on every rank.
     """
     if program not in (None, "full", "fused"):
         raise ValueError(f"unknown program {program!r}")
@@ -244,22 +264,31 @@ def make_tick_fn(
         nb = len(batch)
         if nb and kernel_flags:
             raise ValueError(PALLAS_BATCH_ERROR)
+        row0, nr = C.row_range(n, group)  # this rank's rows (all of them with no group)
+        if st.state.shape[-2] != nr:
+            raise ValueError(f"state holds {st.state.shape[-2]} rows, the rank owns {nr}")
         t = st.tick  # read on the device, never fetched
         tp, tv = t.view(*batch, 1, 1), t.view(*batch, 1)  # against planes / [.., N] rows
         tT = tp.to(st.timer.dtype)  # what a timer write stores (int16 stays int16)
         key_proxy, key_ping, key_bern, key_drop = pg_rng.state_draw_keys(st.key, t)
 
-        idx = torch.arange(n, dtype=torch.int32, device=dev)
-        rows = idx.expand(*batch, n)  # each row's own index, as a per-member index
-        eye = idx[:, None] == idx[None, :]
+        idx = torch.arange(n, dtype=torch.int32, device=dev)  # peer ids: the columns
+        ridx = idx[row0:row0 + nr]  # the rows' own peer ids
+        lidx = torch.arange(nr, dtype=torch.int32, device=dev)  # local row indices
+        rows = ridx.expand(*batch, nr)  # each row's own index, as a per-member index
+        eye = ridx[:, None] == idx[None, :]
         S, T = st.state, st.timer
         lat, idv = st.latency, st.id_view
         has_lat = lat is not None
         has_idv = idv is not None
         alive, never_b, last_b = st.alive, st.never_broadcast, st.last_broadcast
-        id_row = st.identity[..., None, :]
         zero32 = torch.zeros((), dtype=torch.int32, device=dev)
         zero_b = torch.zeros(batch, dtype=torch.int32, device=dev)  # a per-member 0
+
+        def gather(*xs):
+            """Every rank's rows of row-indexed tensors (the tensors themselves
+            with no group)."""
+            return C.gather_many(xs, group, nb)
 
         def msum(x, dtype=None):
             """Sum over each member's cells (the whole tensor for one mesh)."""
@@ -278,6 +307,14 @@ def make_tick_fn(
         # ---- churn: silent kill (Q8) + revive-with-reset --------------------
         if faulty:
             alive = (alive & ~inp.kill) | inp.revive
+            # The per-peer vectors every rank reads at other peers' columns.
+            ident_g, alive_g, part_g, kprp_g, kprf_g, kprn_g = gather(
+                st.identity, alive, inp.partition, st.kpr_partner, st.kpr_fp, st.kpr_n)
+        else:
+            ident_g, alive_g, kprp_g, kprf_g, kprn_g = gather(
+                st.identity, alive, st.kpr_partner, st.kpr_fp, st.kpr_n)
+        id_row = ident_g[..., None, :]
+        if faulty:
             rv = inp.revive
             rvc = rv[..., :, None]
             S = torch.where(rvc, torch.where(eye, KNOWN, 0).to(torch.int8), S)
@@ -288,29 +325,55 @@ def make_tick_fn(
                 idv = torch.where(rvc, torch.where(eye, id_row, zero32), idv)
             never_b = never_b | rv
         else:
-            rv = torch.zeros((*batch, n), dtype=torch.bool, device=dev)
+            rv = torch.zeros((*batch, nr), dtype=torch.bool, device=dev)
 
         # ---- delivery gate: ok[s, d] ----------------------------------------
+        # ``ok_edge(s, d, own)`` reads ok at global peer ids; ``own`` names the
+        # index that is the rank's own row ("s" or "d"), or None for neither.
+        # ``ok_t()`` is the rank's rows of ok's transpose ([receiver, sender]).
+        ok_sym = True  # ok[s, d] == ok[d, s]: no drop gate or drop mask
         if faulty:
-            ok = alive[..., :, None] & alive[..., None, :]
-            ok = ok & (inp.partition[..., :, None] == inp.partition[..., None, :])
+            ok = alive[..., :, None] & alive_g[..., None, :]
+            ok = ok & (inp.partition[..., :, None] == part_g[..., None, :])
             if inp.drop_ok is not None:
                 ok = ok & inp.drop_ok
-            elif bool((inp.drop_rate > 0).any()):
-                ok = _drop_gate(ok, key_drop, inp.drop_rate)
+                ok_sym = False
+            elif bool((inp.drop_rate > 0).any()):  # replicated: no collective
+                ok = _drop_gate(ok, key_drop, inp.drop_rate, row0)
+                ok_sym = False
+            ok_t_memo = []
 
-            def ok_edge(s, d):
-                return _take_cell(ok, s, d)
+            def ok_edge(s, d, own):
+                if own == "s":
+                    return _take_cell(ok, s - row0, d)
+                if group is None:
+                    return _take_cell(ok, s, d)
+                if own == "d":
+                    return _take_cell(ok_t(), d - row0, s)
+                s, d = torch.broadcast_tensors(s, d)
+                return C.take_cells(ok, s, d, group, nb)
 
             def ok_outer():
                 return ok
+
+            def ok_t():
+                if group is None:
+                    return ok.transpose(-1, -2)
+                if ok_sym:
+                    return ok
+                if not ok_t_memo:
+                    ok_t_memo.append(C.transpose(ok, group))
+                return ok_t_memo[0]
         else:
 
-            def ok_edge(s, d):
-                return _take_vec(alive, s) & _take_vec(alive, d)
+            def ok_edge(s, d, own):
+                return _take_vec(alive_g, s) & _take_vec(alive_g, d)
 
             def ok_outer():
-                return alive[..., :, None] & alive[..., None, :]
+                return alive[..., :, None] & alive_g[..., None, :]
+
+            def ok_t():
+                return ok_outer().transpose(-1, -2) if group is None else ok_outer()
 
         # ---- Phase-A row stats on the pre-tick snapshot ---------------------
         S0, T0 = S, T
@@ -319,7 +382,7 @@ def make_tick_fn(
             # The kernel takes its threshold as an int: the tick's one fetch
             # of its own state (one mesh only; an ensemble runs no kernel).
             row_count0, jstar_pre, has_timed, has_cand_pre, wfip_any = fused_suspicion(
-                S, T, alive, int(t) - timeout
+                S, T, alive, int(t) - timeout, row0
             )
         else:
             aged0 = alive[..., :, None] & (T0.to(torch.int32) <= thr)
@@ -327,9 +390,9 @@ def make_tick_fn(
             has_timed = (aged0 & (S0 == WAITING_FOR_PING)).any(dim=-1)
             wfip_any = (aged0 & (S0 == WAITING_FOR_INDIRECT_PING)).any(dim=-1)
             jstar_pre = has_cand_pre = None
-        any_a2 = wfip_any.any() | has_timed.any()
+        any_a2 = C.global_any(wfip_any | has_timed, group)
 
-        rec_hash = peer_record_hash(idx, st.identity)
+        rec_hash = peer_record_hash(idx, ident_g)
         rec_row = rec_hash[..., None, :]
         rec64 = as_u32(rec_row)
         pid_row = idx.to(torch.int64)[None, :]
@@ -376,14 +439,14 @@ def make_tick_fn(
             )
             last_b = torch.where(join_b, tv, last_b)
             never_b = never_b & ~join_b
-            any_join = join_b.any()
+            any_join = C.global_any(join_b, group)
         else:
-            join_b = torch.zeros((*batch, n), dtype=torch.bool, device=dev)
+            join_b = torch.zeros((*batch, nr), dtype=torch.bool, device=dev)
             any_join = torch.zeros((), dtype=torch.bool, device=dev)
 
         # A4: manual pings; self-pings and out-of-range targets drop (D8).
         man_tgt = torch.where(
-            alive & (inp.manual_target != idx) & (inp.manual_target < n),
+            alive & (inp.manual_target != ridx) & (inp.manual_target < n),
             inp.manual_target, -1,
         ).to(torch.int32)
 
@@ -396,12 +459,13 @@ def make_tick_fn(
             delivery), and the share excludes the requester, subtracted per
             edge. A member with no delivered request keeps its state and
             ``(fp_g, n_g)``, as its own skip branch does."""
-            if not bool(del_kpr.any()):
+            if not bool(C.global_any(del_kpr, group)):
                 if telemetry:
                     return S, T, lat, idv, fp_g, n_g, torch.zeros(batch, dtype=torch.int64,
                                                                   device=dev)
                 return S, T, lat, idv, fp_g, n_g
-            mark_g = _col_mark(idx, partner, del_kpr)  # partner marks requester
+            partner_g, del_kpr_g = gather(partner, del_kpr)
+            mark_g = _col_mark(ridx, partner_g, del_kpr_g)  # partner marks requester
             S, T, lat, idv = apply_marks(S, T, lat, idv, mark_g)
             # The reply share is taken before the requester-marks-partner write.
             S_share, T_share = S, T
@@ -411,44 +475,54 @@ def make_tick_fn(
                     (tp - T_share.to(torch.int32)) < cfg.max_peer_share_age_ticks
                 )
 
-            share_f = None
+            share_f = srow = None
             if telemetry:
                 share_f = share_plane()
                 share_cnt = share_f.sum(dim=-1, dtype=torch.int32)
-                own = _take_cell(share_f, partner, rows).to(torch.int32)  # the requester's cell
-                ae_records = msum(torch.where(del_kpr, _take_vec(share_cnt, partner) - own, 0),
-                                  torch.int64)
+                if group is None:
+                    own = _take_cell(share_f, partner, rows)  # the requester's cell
+                else:  # the partners' rows come home once, for this and the reply
+                    srow = C.ring_take_rows(share_f, partner, group)
+                    own = srow.gather(-1, rows.long()[..., None])[..., 0]
+                (share_cnt_g,) = gather(share_cnt)
+                ae_records = msum(torch.where(
+                    del_kpr, _take_vec(share_cnt_g, partner) - own.to(torch.int32), 0),
+                    torch.int64)
             mark_rep = _row_mark(idx, partner, del_rep)  # requester marks partner
             S = torch.where(mark_rep, KNOWN, S)
             T = torch.where(mark_rep, tT, T)
-            if bool(del_rep.any()):
+            if bool(C.global_any(del_rep, group)):
                 if share_f is None:
                     share_f = share_plane()
-                srow = _take_rows(share_f, partner)
+                if srow is None:
+                    srow = C.ring_take_rows(share_f, partner, group)
                 rep_ins = del_rep[..., :, None] & srow & ~eye & ~(S > 0)
                 S = torch.where(rep_ins, KNOWN, S)
                 T = torch.where(rep_ins, (tp - gossip_backdate).to(T.dtype), T)
                 if has_idv:
                     idv = torch.where(rep_ins, id_row, idv)
             fp_f, n_f = fp_count(S, idv)
-            kpr_m = del_kpr.any(dim=-1)
-            fp_f, n_f = select(kpr_m, fp_f, fp_g), select(kpr_m, n_f, n_g)
+            if nb:
+                kpr_m = C.member_any(del_kpr, group, nb)
+                fp_f, n_f = select(kpr_m, fp_f, fp_g), select(kpr_m, n_f, n_g)
             if telemetry:
                 return S, T, lat, idv, fp_f, n_f, ae_records
             return S, T, lat, idv, fp_f, n_f
 
-        def _ae_phase01(fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt):
-            """Anti-entropy candidate phases 0-1 (take_sync_request order)."""
-            m0 = (st.kpr_partner[..., None, :] == idx[:, None]) & alive[..., :, None] & (
+        def _ae_phase01(fp_g, n_g, fp1_g, n1_g, del_ack, del_ack_man, ping_tgt):
+            """Anti-entropy candidate phases 0-1 (take_sync_request order);
+            ``fp1_g``/``n1_g`` are every peer's call-1 digests."""
+            m0 = (kprp_g[..., None, :] == ridx[:, None]) & alive[..., :, None] & (
                 ~rv[..., :, None])
-            match0 = m0 & (st.kpr_fp[..., None, :] != fp_g[..., :, None]) & (
-                n_g[..., :, None] <= st.kpr_n[..., None, :]
+            match0 = m0 & (kprf_g[..., None, :] != fp_g[..., :, None]) & (
+                n_g[..., :, None] <= kprn_g[..., None, :]
             )
             prio0 = torch.where(match0, idx[None, :], INF).amin(dim=-1)
             peer0 = prio0  # sender == candidate peer for KPR candidates
-            m_d = del_ack & (_take_vec(fp1, ping_tgt) != fp_g) & (n_g <= _take_vec(n1, ping_tgt))
-            m_m = del_ack_man & (_take_vec(fp1, man_tgt) != fp_g) & (
-                n_g <= _take_vec(n1, man_tgt))
+            m_d = del_ack & (_take_vec(fp1_g, ping_tgt) != fp_g) & (
+                n_g <= _take_vec(n1_g, ping_tgt))
+            m_m = del_ack_man & (_take_vec(fp1_g, man_tgt) != fp_g) & (
+                n_g <= _take_vec(n1_g, man_tgt))
             prio_d = torch.where(m_d, n + ping_tgt, INF)
             prio_m = torch.where(m_m, n + man_tgt, INF)
             prio1 = torch.minimum(prio_d, prio_m)
@@ -456,16 +530,38 @@ def make_tick_fn(
             return prio0, peer0, prio1, peer1
 
         def _finish(S, T, lat, idv, kpr_partner_new, fp_g, n_g, fp_f, n_f, msgs,
-                    counters=None):
+                    counters=None, records=None):
             """Metrics + next-state assembly, shared by both programs.
 
             In the telemetry build ``counters`` carries the program's event
-            counts; the two pre/post-state counters (suspicions refuted:
+            counts (this rank's rows) and ``records`` the gossip records sent;
+            the two pre/post-state counters (suspicions refuted:
             WaitingForIndirectPing at S0 and Known now; armed timers: waiting
-            cells of alive rows at tick end) are filled in here, and ``fp_f``
-            rides out as the flight recorder's digest plane."""
-            converged, fpa_min, fpa_max, n_alive = fingerprint_agreement(alive, fp_f)
+            cells of alive rows at tick end) are filled in here, every sum is
+            reduced over the ranks, and ``fp_f`` rides out as the flight
+            recorder's digest plane."""
+            converged, fpa_min, fpa_max, n_alive = C.fingerprint_agreement(alive, fp_f, group)
             agree = msum(alive & (fp_f == fpa_min[..., None]), torch.int32)
+            sums = [msgs, agree]
+            if telemetry:
+                counters = dataclasses.replace(
+                    counters,
+                    suspicions_refuted=msum((S0 == WAITING_FOR_INDIRECT_PING) & (S == KNOWN),
+                                            torch.int32),
+                    armed_timers=msum(alive[..., :, None] & (
+                        (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING)), torch.int32),
+                )
+                names = [f.name for f in dataclasses.fields(ProtocolCounters)
+                         if f.name != "gossip_bytes"]
+                sums += [getattr(counters, k) for k in names] + [records]
+            sums = C.reduce_sum_many(sums, group)
+            msgs, agree = sums[:2]
+            if telemetry:
+                counters = dataclasses.replace(
+                    counters, gossip_bytes=_gossip_bytes(sums[-1]),
+                    **dict(zip(names, sums[2:-1])))
+            # A float sum: taken over the whole [N] vector, in the dense order.
+            member_f = C.gather_rows(torch.where(alive, n_f, 0).to(torch.float32), group)
             denom = n_alive.clamp(min=1)
             new_state = MeshState(
                 state=S, timer=T, alive=alive, identity=st.identity,
@@ -477,18 +573,11 @@ def make_tick_fn(
                 messages_delivered=msgs.to(torch.int32),
                 converged=converged,
                 agree_fraction=agree.to(torch.float32) / denom,
-                mean_membership=msum(torch.where(alive, n_f, 0).to(torch.float32)) / denom,
+                mean_membership=msum(member_f) / denom,
                 fingerprint_min=fpa_min,
                 fingerprint_max=fpa_max,
             )
             if telemetry:
-                counters = dataclasses.replace(
-                    counters,
-                    suspicions_refuted=msum((S0 == WAITING_FOR_INDIRECT_PING) & (S == KNOWN),
-                                            torch.int32),
-                    armed_timers=msum(alive[..., :, None] & (
-                        (S == WAITING_FOR_PING) | (S == WAITING_FOR_INDIRECT_PING)), torch.int32),
-                )
                 return new_state, TickTelemetry(metrics=metrics, counters=counters, fp=fp_f)
             return new_state, metrics
 
@@ -501,6 +590,7 @@ def make_tick_fn(
 
         def _rest():
             """The full program's tail: A2 suspicion handling onward."""
+            # The gates below are predicates over every rank's rows.
             S_, T_, lat_, idv_ = S, T, lat, idv
             if cfg.use_pallas_suspicion:
                 jstar, has_cand = jstar_pre, has_cand_pre
@@ -517,23 +607,24 @@ def make_tick_fn(
             escalate = has_timed & has_cand
             insta_remove = has_timed & ~has_cand  # no proxies -> drop (:599-605)
             jstar_cell = idx[None, :] == jstar[..., :, None]
-            any_rem = bool(wfip_any.any() | insta_remove.any())
-            escalating = bool(escalate.any())
+            any_rem = bool(C.global_any(wfip_any | insta_remove, group))
+            escalating = bool(C.global_any(escalate, group))
             joining = bool(any_join)
-            esc_m = escalate.any(dim=-1)  # each member's own escalation gate
+            # Each member's own escalation gate (only an ensemble selects on it).
+            esc_m = C.member_any(escalate, group, nb) if nb else None
 
             # A2: handle_suspected_peers on the pre-tick snapshot.
             k_prox = min(cfg.num_indirect_ping_peers, n)
-            no_proxies = torch.zeros((*batch, n, k_prox), dtype=torch.int32, device=dev)
+            no_proxies = torch.zeros((*batch, nr, k_prox), dtype=torch.int32, device=dev)
             if escalating:
                 known_cand = (S0 == KNOWN) & ~eye
                 proxies, proxies_valid = choose_k_members(
-                    known_cand, cfg.num_indirect_ping_peers, key_proxy, det
+                    known_cand, cfg.num_indirect_ping_peers, key_proxy, det, row0
                 )
                 proxies = select(esc_m, proxies, no_proxies)
             else:
                 proxies = no_proxies
-                proxies_valid = torch.zeros((*batch, n, k_prox), dtype=torch.bool, device=dev)
+                proxies_valid = torch.zeros((*batch, nr, k_prox), dtype=torch.bool, device=dev)
             proxies_valid = proxies_valid & escalate[..., :, None]
 
             def _a2_rem():
@@ -559,13 +650,13 @@ def make_tick_fn(
             # A3: ping_random_peer (kaboodle.rs:655-703) on the post-A2 state.
             if cfg.use_pallas_oldest_k:
                 kk = 1 if det else cfg.num_candidate_target_peers
-                cand_idx, cand_valid = fused_oldest_k(S_, T_, alive, kk)
-                ping_tgt = choose_among_candidates(cand_idx, cand_valid, key_ping, det)
+                cand_idx, cand_valid = fused_oldest_k(S_, T_, alive, kk, row0)
+                ping_tgt = choose_among_candidates(cand_idx, cand_valid, key_ping, det, row0)
             else:
                 elig = alive[..., :, None] & (S_ == KNOWN) & ~eye
                 ping_tgt = choose_one_of_oldest_k(
                     T_, elig, cfg.num_candidate_target_peers, key_ping, det,
-                    method=cfg.oldest_k_method,
+                    method=cfg.oldest_k_method, row0=row0,
                 )
             has_ping = ping_tgt >= 0
             tgt_cell = _row_mark(idx, ping_tgt, has_ping)
@@ -579,39 +670,42 @@ def make_tick_fn(
             if cfg.join_broadcast_enabled:
                 # [receiver, origin]; row-major again after the transpose, so
                 # every plane written through it stays contiguous.
-                Jm = (join_b[..., None, :] & ok_outer().transpose(-1, -2) & ~eye).contiguous()
+                (join_b_g,) = gather(join_b)
+                Jm = (join_b_g[..., None, :] & ok_t() & ~eye).contiguous()
                 is_new_ro = Jm & ~member_a
                 S_ = torch.where(Jm, KNOWN, S_)
                 T_ = torch.where(Jm, tT, T_)
                 if has_idv:
                     idv_ = torch.where(Jm, id_row, idv_)
             else:
-                Jm = torch.zeros((*batch, n, n), dtype=torch.bool, device=dev)
+                Jm = torch.zeros((*batch, nr, n), dtype=torch.bool, device=dev)
                 is_new_ro = Jm
 
             if not cfg.faithful_failed_broadcast and any_rem:
                 # Failed(j) from i delivered at r (r != j) removes j; a
                 # same-tick Join(j) wins only against origins i < j.
                 rem = _a2_rem()
-                rem_gt = rem & (idx[:, None] > idx[None, :])
-                ok_t = ok_outer().transpose(-1, -2)
+                rem_gt = rem & (ridx[:, None] > idx[None, :])
+                okt = ok_t()
                 fail_del = ~eye & torch.where(
-                    Jm, _bool_matmul(ok_t, rem_gt), _bool_matmul(ok_t, rem)
+                    Jm, C.ring_or_matmul(okt, rem_gt, group, _bool_matmul),
+                    C.ring_or_matmul(okt, rem, group, _bool_matmul),
                 )
                 S_ = torch.where(fail_del, 0, S_)
                 if has_lat:
                     lat_ = torch.where(fail_del, _NAN, lat_)
 
             # Join responses (kaboodle.rs:333-392) and the gossip union.
-            reply_del = gossip = None
+            reply_del = reply_t = gossip = None
             join_records = torch.zeros(batch, dtype=torch.int64, device=dev) if telemetry else None
             if cfg.join_broadcast_enabled and joining:
                 n_after = row_count_a[..., :, None] + torch.cumsum(is_new_ro, dim=-1,
                                                                    dtype=torch.int32)
                 reply_p = broadcast_reply_prob(n_after)
-                bern = bernoulli_matrix(key_bern, reply_p, (n, n), det)
+                bern = bernoulli_matrix(key_bern, reply_p, (nr, n), det, row0)
                 reply = is_new_ro & bern  # [r, o]
                 reply_del = reply & ok_outer()
+                reply_t = C.transpose(reply_del, group)  # [o, r]
                 base_c = None  # the D5-capped start-of-round map
                 if telemetry:
                     # Records in the join-response shares SENT (``reply``, not
@@ -628,7 +722,7 @@ def make_tick_fn(
                             Jm & ~base_c, dim=-1, dtype=torch.int32)
                         rec_cnt = torch.where(n_after <= cap, n_after, clen)
                     join_records = msum(torch.where(reply, rec_cnt, 0), torch.int64)
-                if bool(reply_del.any()):
+                if bool(C.global_any(reply_del, group)):
                     share_base = member_a
                     if cfg.max_share_peers and n > cfg.max_share_peers:
                         # D5: cap to the lowest-index members of the map.
@@ -639,34 +733,36 @@ def make_tick_fn(
                             )
                             base_c = member_a & within_cap
                         share_base = base_c
-                    reply_t = reply_del.transpose(-1, -2)
-                    term1 = _bool_matmul(reply_t, share_base)  # [o, j]
-                    term2 = _bool_matmul(reply_t, Jm)
-                    tri = idx[None, :] <= idx[:, None]  # j <= o
+                    term1 = C.ring_or_matmul(reply_t, share_base, group, _bool_matmul)  # [o, j]
+                    term2 = C.ring_or_matmul(reply_t, Jm, group, _bool_matmul)
+                    tri = idx[None, :] <= ridx[:, None]  # j <= o
                     gossip = term1 | (term2 & tri)
 
             # ============= Call 1: Pings + PingRequests =====================
-            ok_ping = has_ping & ok_edge(rows, ping_tgt)
-            ok_man = (man_tgt >= 0) & ok_edge(rows, man_tgt)
-            del_pr = proxies_valid & ok_edge(rows[..., None], proxies)  # [.., N, k]
-            mark1 = _col_mark(idx, ping_tgt, ok_ping) | _col_mark(idx, man_tgt, ok_man)
+            ok_ping = has_ping & ok_edge(rows, ping_tgt, "s")
+            ok_man = (man_tgt >= 0) & ok_edge(rows, man_tgt, "s")
+            del_pr = proxies_valid & ok_edge(rows[..., None], proxies, "s")  # [.., N, k]
+            del_ack = ok_ping & ok_edge(ping_tgt, rows, "d")  # tgt -> pinger
+            del_ack_man = ok_man & ok_edge(man_tgt, rows, "d")
+            ping_tgt_g, ok_ping_g, man_tgt_g, ok_man_g, del_ack_g, del_ack_man_g = gather(
+                ping_tgt, ok_ping, man_tgt, ok_man, del_ack, del_ack_man)
+            mark1 = _col_mark(ridx, ping_tgt_g, ok_ping_g) | _col_mark(ridx, man_tgt_g, ok_man_g)
             if escalating:
+                proxies_g, del_pr_g = gather(proxies, del_pr)
                 for kk in range(proxies.shape[-1]):
-                    mark1 = mark1 | _col_mark(idx, proxies[..., kk], del_pr[..., kk])
+                    mark1 = mark1 | _col_mark(ridx, proxies_g[..., kk], del_pr_g[..., kk])
             fp0, n0 = fp_count(S_, idv_)
             S_, T_, lat_, idv_, dfp1, dn1 = apply_marks_delta(S_, T_, lat_, idv_, mark1)
             fp1, n1 = _add32(fp0, dfp1), n0 + dn1
 
-            del_ack = ok_ping & ok_edge(ping_tgt, rows)  # tgt -> pinger
-            del_ack_man = ok_man & ok_edge(man_tgt, rows)
-            del_pping = del_pr & ok_edge(proxies, jstar[..., None])  # proxy -> suspect
+            del_pping = del_pr & ok_edge(proxies, jstar[..., None], None)  # proxy -> suspect
 
             # ============= Call 2: Acks, proxy Pings, join responses ========
             mark2 = _row_mark(idx, ping_tgt, del_ack) | _row_mark(idx, man_tgt, del_ack_man)
-            if reply_del is not None:  # joiner marks join-responder
-                mark2 = mark2 | reply_del.transpose(-1, -2).contiguous()
+            if reply_t is not None:  # joiner marks join-responder
+                mark2 = mark2 | reply_t.contiguous()
             if escalating:  # suspect marks proxy
-                mark2 = _scatter_or(mark2, jstar[..., None], proxies, del_pping)
+                mark2 = C.scatter_or_rows(mark2, jstar[..., None], proxies, del_pping, group, nb)
             S_, T_, lat_, idv_, dfp2, dn2 = apply_marks_delta(S_, T_, lat_, idv_, mark2)
 
             if gossip is not None:  # gossip-learned peers, back-dated (Q6)
@@ -676,31 +772,32 @@ def make_tick_fn(
                 if has_idv:
                     idv_ = torch.where(gossip_new, id_row, idv_)
 
-            no_fp = torch.zeros((*batch, n), dtype=torch.int32, device=dev)
+            no_fp = torch.zeros((*batch, nr), dtype=torch.int32, device=dev)
             if escalating:
                 fp2, n2 = fp_count(S_, idv_)
                 fp2, n2 = select(esc_m, fp2, no_fp), select(esc_m, n2, no_fp)
             else:
                 fp2 = n2 = no_fp
 
-            del_pack = del_pping & ok_edge(jstar[..., None], proxies)  # [.., N, k]
-            pop_hit = ((_take_vec(ping_tgt, proxies) == jstar[..., None])
-                       & _take_vec(del_ack, proxies)) | (
-                (_take_vec(man_tgt, proxies) == jstar[..., None])
-                & _take_vec(del_ack_man, proxies)
+            del_pack = del_pping & ok_edge(jstar[..., None], proxies, None)  # [.., N, k]
+            pop_hit = ((_take_vec(ping_tgt_g, proxies) == jstar[..., None])
+                       & _take_vec(del_ack_g, proxies)) | (
+                (_take_vec(man_tgt_g, proxies) == jstar[..., None])
+                & _take_vec(del_ack_man_g, proxies)
             )
             fwd_c = del_pr & pop_hit  # proxy forwards its call-2 ack payload (fp1)
-            del_fwd_c = fwd_c & ok_edge(proxies, rows[..., None])
+            del_fwd_c = fwd_c & ok_edge(proxies, rows[..., None], "d")
             fwd = del_pack & ~pop_hit
-            del_fwd = fwd & ok_edge(proxies, rows[..., None])
+            del_fwd = fwd & ok_edge(proxies, rows[..., None], "d")
 
             # ======== Calls 3 + 4: escalation-only delivery waves ===========
             if escalating:
-                no_marks = torch.zeros((*batch, n, n), dtype=torch.bool, device=dev)
-                mark3 = _scatter_or(no_marks, proxies, jstar[..., None], del_pack)
-                mark3 = _scatter_or(mark3, idx[:, None], proxies, del_fwd_c)
+                no_marks = torch.zeros((*batch, nr, n), dtype=torch.bool, device=dev)
+                mark3 = C.scatter_or_rows(no_marks, proxies, jstar[..., None], del_pack,
+                                          group, nb)
+                mark3 = _scatter_or(mark3, lidx[:, None], proxies, del_fwd_c)
                 S_, T_, lat_, idv_ = apply_marks(S_, T_, lat_, idv_, mark3)
-                mark4 = _scatter_or(no_marks, idx[:, None], proxies, del_fwd)
+                mark4 = _scatter_or(no_marks, lidx[:, None], proxies, del_fwd)
                 S_, T_, lat_, idv_ = apply_marks(S_, T_, lat_, idv_, mark4)
                 if not cfg.faithful_indirect_ack:
                     cleared = (del_fwd | del_fwd_c).any(dim=-1)
@@ -711,27 +808,28 @@ def make_tick_fn(
             # ============= G. Anti-entropy ==================================
             if joining or escalating:
                 fp_g, n_g = fp_count(S_, idv_)
-                recount = join_b.any(dim=-1) | esc_m
-                fp_g = select(recount, fp_g, _add32(fp1, dfp2))
-                n_g = select(recount, n_g, n1 + dn2)
+                if nb:
+                    recount = C.member_any(join_b, group, nb) | esc_m
+                    fp_g = select(recount, fp_g, _add32(fp1, dfp2))
+                    n_g = select(recount, n_g, n1 + dn2)
             else:
                 fp_g, n_g = _add32(fp1, dfp2), n1 + dn2
 
+            fp1_g, n1_g, fp2_g, n2_g, fp_g_g, n_g_g = gather(fp1, n1, fp2, n2, fp_g, n_g)
             prio0, peer0, prio1, peer1 = _ae_phase01(
-                fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt
+                fp_g, n_g, fp1_g, n1_g, del_ack, del_ack_man, ping_tgt
             )
             # Phase 2 (call-3 acks) and phase 3 (call-4 forwarded acks).
             base2, base3 = 2 * n, 3 * n
-            x_fp2, x_n2 = _take_vec(fp2, jstar), _take_vec(n2, jstar)
-            m_px = del_pack & (x_fp2[..., None] != _take_vec(fp_g, proxies)) & (
-                _take_vec(n_g, proxies) <= x_n2[..., None])
-            prio_proxy = torch.full((*batch, n), INF, dtype=torch.int32, device=dev).scatter_reduce(
-                -1, proxies.clamp(min=0).long().reshape(*batch, -1),
-                torch.where(m_px, base2 + jstar[..., None], INF).reshape(*batch, -1),
-                reduce="amin", include_self=True,
+            x_fp2, x_n2 = _take_vec(fp2_g, jstar), _take_vec(n2_g, jstar)
+            m_px = del_pack & (x_fp2[..., None] != _take_vec(fp_g_g, proxies)) & (
+                _take_vec(n_g_g, proxies) <= x_n2[..., None])
+            prio_proxy = C.scatter_min(
+                n, proxies.reshape(*batch, -1),
+                torch.where(m_px, base2 + jstar[..., None], INF).reshape(*batch, -1), group,
             )
             peer_proxy = prio_proxy - base2
-            x_fp1, x_n1 = _take_vec(fp1, jstar), _take_vec(n1, jstar)
+            x_fp1, x_n1 = _take_vec(fp1_g, jstar), _take_vec(n1_g, jstar)
             m_cf = del_fwd_c & (x_fp1[..., None] != fp_g[..., None]) & (
                 n_g[..., None] <= x_n1[..., None])
             prio_coinc = torch.where(m_cf, base2 + proxies, INF).amin(dim=-1)
@@ -749,8 +847,8 @@ def make_tick_fn(
             ).to(torch.int32)
             has_req = (best != INF) & alive
             partner = torch.where(has_req, partner, -1)
-            del_kpr = has_req & ok_edge(rows, partner)
-            del_rep = del_kpr & ok_edge(partner, rows)  # partner -> requester
+            del_kpr = has_req & ok_edge(rows, partner, "s")
+            del_rep = del_kpr & ok_edge(partner, rows, "d")  # partner -> requester
 
             S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
@@ -762,7 +860,7 @@ def make_tick_fn(
             )
             if reply_del is not None:
                 msgs = msgs + msum(reply_del, torch.int64)
-            counters = None
+            counters = records = None
             if telemetry:
                 counters = ProtocolCounters(
                     pings_sent=_i32(has_ping) + _i32(man_tgt >= 0) + _i32(del_pr),
@@ -773,12 +871,13 @@ def make_tick_fn(
                     suspicions_refuted=zero_b,  # filled by _finish
                     deaths_declared=deaths,
                     joins_disseminated=_i32(Jm) if joining else zero_b,
-                    gossip_bytes=_gossip_bytes(ae[0] + join_records),
+                    gossip_bytes=None,  # filled by _finish, from records
                     armed_timers=zero_b,  # filled by _finish
                 )
+                records = ae[0] + join_records
             return _finish(
                 S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
-                fp_g, n_g, fp_f, n_f, msgs, counters,
+                fp_g, n_g, fp_f, n_f, msgs, counters, records,
             )
 
         def _fast():
@@ -792,16 +891,17 @@ def make_tick_fn(
             elig = alive[..., :, None] & (S_ == KNOWN) & ~eye
             ping_tgt = choose_one_of_oldest_k(
                 T_, elig, cfg.num_candidate_target_peers, key_ping, det,
-                method=cfg.oldest_k_method,
+                method=cfg.oldest_k_method, row0=row0,
             )
             has_ping = ping_tgt >= 0
-            ok_ping = has_ping & ok_edge(rows, ping_tgt)
-            ok_man = (man_tgt >= 0) & ok_edge(rows, man_tgt)
-            del_ack = ok_ping & ok_edge(ping_tgt, rows)
-            del_ack_man = ok_man & ok_edge(man_tgt, rows)
+            ok_ping = has_ping & ok_edge(rows, ping_tgt, "s")
+            ok_man = (man_tgt >= 0) & ok_edge(rows, man_tgt, "s")
+            del_ack = ok_ping & ok_edge(ping_tgt, rows, "d")
+            del_ack_man = ok_man & ok_edge(man_tgt, rows, "d")
 
             tgt_cell = _row_mark(idx, ping_tgt, has_ping)
-            mark1 = _col_mark(idx, ping_tgt, ok_ping) | _col_mark(idx, man_tgt, ok_man)
+            ping_tgt_g, ok_ping_g, man_tgt_g, ok_man_g = gather(ping_tgt, ok_ping, man_tgt, ok_man)
+            mark1 = _col_mark(ridx, ping_tgt_g, ok_ping_g) | _col_mark(ridx, man_tgt_g, ok_man_g)
             mark2 = _row_mark(idx, ping_tgt, del_ack) | _row_mark(idx, man_tgt, del_ack_man)
             mark_k = mark1 | mark2
 
@@ -843,15 +943,16 @@ def make_tick_fn(
             fp_g, n_g = _add32(fp1, dfp2), n1 + dn2
 
             # G: anti-entropy candidates, phases 0 and 1 only.
+            fp1_g, n1_g = gather(fp1, n1)
             prio0, peer0, prio1, peer1 = _ae_phase01(
-                fp_g, n_g, fp1, n1, del_ack, del_ack_man, ping_tgt
+                fp_g, n_g, fp1_g, n1_g, del_ack, del_ack_man, ping_tgt
             )
             best = torch.minimum(prio0, prio1)
             partner = torch.where(best == prio0, peer0, peer1).to(torch.int32)
             has_req = (best != INF) & alive
             partner = torch.where(has_req, partner, -1)
-            del_kpr = has_req & ok_edge(rows, partner)
-            del_rep = del_kpr & ok_edge(partner, rows)
+            del_kpr = has_req & ok_edge(rows, partner, "s")
+            del_rep = del_kpr & ok_edge(partner, rows, "d")
 
             S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
@@ -860,7 +961,7 @@ def make_tick_fn(
                 msum(x, torch.int64)
                 for x in (ok_ping, ok_man, del_ack, del_ack_man, del_kpr, del_rep)
             )
-            counters = None
+            counters = records = None
             if telemetry:
                 # No escalation, join or A2 removal on these ticks: the
                 # counters those feed are structurally zero.
@@ -872,12 +973,13 @@ def make_tick_fn(
                     suspicions_refuted=zero_b,  # filled by _finish
                     deaths_declared=zero_b,
                     joins_disseminated=zero_b,
-                    gossip_bytes=_gossip_bytes(ae[0]),
+                    gossip_bytes=None,  # filled by _finish, from records
                     armed_timers=zero_b,  # filled by _finish
                 )
+                records = ae[0]
             return _finish(
                 S_, T_, lat_, idv_, torch.where(del_kpr, partner, -1),
-                fp_g, n_g, fp_f, n_f, msgs, counters,
+                fp_g, n_g, fp_f, n_f, msgs, counters, records,
             )
 
         # ---- dispatch ------------------------------------------------------

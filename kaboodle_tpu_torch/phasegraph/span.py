@@ -32,6 +32,15 @@ pass over ``k`` steps with no round trip. The scatters that JAX writes as
 entry state's), per member under ``[E]`` leaves (``masked=True``: the
 fleet runner's per-member span lengths).
 
+Built with a row group (``group=``, ``parallel/``), the leap runs on the
+rank's rows: the draws are its rows of the dense draws, the refreshes of
+its own rows are local, and the refreshes that land in other rows --
+``timer[tgt_i, i]`` and, in the hybrid program, the request mark at
+``(partner_i, i)`` -- come to their owners as every rank's targets and
+partners, gathered once a step. The phase-0 priority, a scatter-min over
+every requester, is all-reduced; the span-invariant fingerprints, map
+sizes and aliveness are gathered once a leap.
+
 There is no planner in the port: the op sets the JAX planner derives for
 the ``span`` and ``hybrid`` programs are written out in ``_SPAN_PASSES``
 and ``_HYBRID_PASSES`` and pinned to it by the tests; this module
@@ -49,6 +58,7 @@ from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.ops import threefry
 from kaboodle_tpu_torch.ops.hashing import membership_fingerprint
 from kaboodle_tpu_torch.ops.sampling import pick_candidate
+from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.phasegraph import rng as pg_rng
 from kaboodle_tpu_torch.phasegraph.exec import INF, _member_offset, _take_vec
 from kaboodle_tpu_torch.sim.state import MeshState
@@ -100,15 +110,18 @@ def _lex_k_smallest(t: torch.Tensor, c: torch.Tensor, k: int, tmax: int):
     return torch.stack(out_t, dim=-1), torch.stack(out_c, dim=-1), torch.stack(out_v, dim=-1)
 
 
-def _ping_uniform(key: torch.Tensor, tick: torch.Tensor, n: int) -> torch.Tensor:
+def _ping_uniform(key: torch.Tensor, tick: torch.Tensor, rows: int,
+                  row0: int = 0) -> torch.Tensor:
     """The dense tick's ping-draw uniforms for ``tick`` (any shape): float32
-    ``[*tick.shape, N]`` from ``tick_stream_key(key, tick, STREAM_TICK_PING)``."""
+    ``[*tick.shape, rows]`` from ``tick_stream_key(key, tick,
+    STREAM_TICK_PING)``, rows ``row0 ..`` of the dense draw."""
     words = threefry._u32(key)
     ping = pg_rng.tick_stream_key((words[..., 0], words[..., 1]), tick, pg_rng.STREAM_TICK_PING)
-    return threefry.uniform(ping, (n,), key.device)
+    return threefry.uniform(ping, (rows,), key.device, row0)
 
 
-def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = False) -> Callable:
+def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = False,
+                 group=None) -> Callable:
     """Build the k-tick leap for a protocol config.
 
     ``hybrid=True`` builds the near-quiescent program: the strict span plus
@@ -124,6 +137,9 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
     an ``[E]`` ensemble with every member at its own horizon; ``k_m == 0``
     leaves a member bit-unchanged. Otherwise ``leap(state)`` takes one mesh.
 
+    ``group`` builds the row-sharded leap (module docstring): the state is
+    the rank's rows, and every rank must call it with the same ``k``.
+
     Precondition (the caller's, from the signature; never re-checked here):
     the state is in the program's class and the next ``k`` (``k_m``) ticks
     carry no scheduled event and end before the earliest timer expiry.
@@ -137,14 +153,18 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
         S, T, alive = st.state, st.timer, st.alive
         n, dev = st.n, S.device
         batch = tuple(S.shape[:-2])
+        row0, nr = C.row_range(n, group)  # this rank's rows (all with no group)
         n_cand = min(kk, n)
         W = min(_SEG_W, n)
         B = -(-n // W)  # segments per row
         BW = B * W
         tmax, tmin = torch.iinfo(T.dtype).max, torch.iinfo(T.dtype).min
         idx = torch.arange(n, dtype=torch.int32, device=dev)
-        rows = idx.expand(*batch, n)  # each row's own index, per member
-        eye = idx[:, None] == idx[None, :]
+        ridx = idx[row0:row0 + nr]  # the rows' own peer ids
+        rows = ridx.expand(*batch, nr)  # each row's own index, per member
+        lrows = torch.arange(nr, dtype=torch.int32, device=dev).expand(*batch, nr)
+        every = idx.expand(*batch, n)  # every peer, as a sender of remote marks
+        eye = ridx[:, None] == idx[None, :]
 
         def flat(i: torch.Tensor, stride: int) -> torch.Tensor:
             """Per-member flat index: ``i`` plus member e's offset ``e * stride``."""
@@ -155,22 +175,26 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
         # lands on an eligible cell. Padded to the segment grid with
         # ineligible sentinel columns.
         elig = alive[..., :, None] & (S == KNOWN) & ~eye
-        scores = torch.full((*batch, n, BW), tmax, dtype=T.dtype, device=dev)
+        scores = torch.full((*batch, nr, BW), tmax, dtype=T.dtype, device=dev)
         scores[..., :n] = torch.where(elig, T, tmax)
         cols = torch.arange(BW, dtype=torch.int32, device=dev).view(B, W)
         # Entry summaries, [*, N, B, n_cand]: the one O(N^2) reduction.
-        sum_t, sum_c, _ = _lex_k_smallest(scores.view(*batch, n, B, W), cols, n_cand, tmax)
+        sum_t, sum_c, _ = _lex_k_smallest(scores.view(*batch, nr, B, W), cols, n_cand, tmax)
         scores_f = scores.view(-1)
         sum_t_f, sum_c_f = sum_t.view(-1, n_cand), sum_c.view(-1, n_cand)
         lat = None if st.latency is None else st.latency.clone()  # written in place
 
+        def row_fp(member):
+            ident = st.id_view if st.id_view is not None else C.gather_rows(st.identity, group)
+            return membership_fingerprint(member, ident)
+
         if hybrid:
-            # What the sterile pass ranks against: invariant in-class.
+            # What the sterile pass ranks against: invariant in-class, so
+            # every peer's is gathered once.
             member = S > 0
-            fp = membership_fingerprint(
-                member, st.id_view if st.id_view is not None else st.identity
-            )
+            fp = row_fp(member)
             n_row = member.sum(dim=-1, dtype=torch.int32)
+            fp_g, n_row_g, alive_g = C.gather_many([fp, n_row, alive], group, len(batch))
         kprp, kprf, kprn = st.kpr_partner, st.kpr_fp, st.kpr_n
 
         if not masked:
@@ -185,18 +209,18 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
             if masked:
                 active = (step < k_m)[..., None]  # a device flag per member
                 t = st.tick + step
-                u = None if det else _ping_uniform(st.key, t, n)
+                u = None if det else _ping_uniform(st.key, t, nr, row0)
             else:
                 t = ticks[..., step]
                 if not det and step % _DRAW_STEPS == 0:
-                    us = _ping_uniform(st.key, ticks[..., step:step + _DRAW_STEPS], n)
+                    us = _ping_uniform(st.key, ticks[..., step:step + _DRAW_STEPS], nr, row0)
                 u = None if det else us[..., step % _DRAW_STEPS, :]
             tT = t.to(T.dtype)[..., None]  # wraps into int16 as the dense tick does
 
             # Cross-segment selection: a row's oldest 5 are among its
             # per-segment oldest 5s, in the dense draw's (timer, col) order.
             _, cand_idx, cand_valid = _lex_k_smallest(
-                sum_t.view(*batch, n, B * n_cand), sum_c.view(*batch, n, B * n_cand),
+                sum_t.view(*batch, nr, B * n_cand), sum_c.view(*batch, nr, B * n_cand),
                 n_cand, tmax,
             )
             tgt = pick_candidate(cand_idx.clamp(max=n - 1), cand_valid, u)
@@ -211,40 +235,47 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
                 # gives the same minimum); sender aliveness unchecked, as
                 # in the dense tick. Phase 1: this tick's acks (every ping
                 # is delivered and acked in-class), priority = n + target.
-                cand0 = (kprp >= 0) & (kprf != _take_vec(fp, kprp)) & (
-                    _take_vec(n_row, kprp) <= kprn)
-                prio0 = torch.full((*batch, n), INF, dtype=torch.int32, device=dev).scatter_reduce(
-                    -1, kprp.clamp(min=0).long(), torch.where(cand0, rows, INF),
-                    reduce="amin", include_self=True,
-                )
+                cand0 = (kprp >= 0) & (kprf != _take_vec(fp_g, kprp)) & (
+                    _take_vec(n_row_g, kprp) <= kprn)
+                prio0 = C.scatter_min(n, kprp, torch.where(cand0, rows, INF), group)
                 prio0 = torch.where(alive, prio0, INF)
-                cand1 = has_ping & (_take_vec(fp, tgt) != fp) & (n_row <= _take_vec(n_row, tgt))
+                cand1 = has_ping & (_take_vec(fp_g, tgt) != fp) & (
+                    n_row <= _take_vec(n_row_g, tgt))
                 prio1 = torch.where(cand1, n + tgt, INF)
                 best = torch.minimum(prio0, prio1)
                 has_req = (best != INF) & alive
                 partner = torch.where(has_req, torch.where(best == prio0, prio0, tgt), -1)
                 partner = partner.to(torch.int32)
                 pc2 = partner.clamp(min=0)
-                del_kpr = has_req & _take_vec(alive, partner)
+                del_kpr = has_req & _take_vec(alive_g, partner)
                 if masked:
                     del_kpr = del_kpr & active
                 # Ping stamp + ack re-stamp at (i, tgt_i), Q1 mark at
                 # (tgt_i, i), request mark at (partner_i, i), reply mark at
-                # (i, partner_i): all write this tick's value.
-                rows_u = torch.cat([rows, tgtc, pc2, rows], dim=-1)
-                cols_u = torch.cat([tgtc, rows, rows, pc2], dim=-1)
-                hit = torch.cat([has_ping, has_ping, del_kpr, del_kpr], dim=-1)
+                # (i, partner_i): all write this tick's value. The marks
+                # in other rows come from every peer, kept where they land
+                # in this rank's rows.
+                tgt_g, ping_g, pc2_g, kpr_g = C.gather_many(
+                    [tgtc, has_ping, pc2, del_kpr], group, len(batch))
+                t_mine = (tgt_g >= row0) & (tgt_g < row0 + nr)
+                p_mine = (pc2_g >= row0) & (pc2_g < row0 + nr)
+                rows_u = torch.cat([lrows, torch.where(t_mine, tgt_g - row0, 0),
+                                    torch.where(p_mine, pc2_g - row0, 0), lrows], dim=-1)
+                cols_u = torch.cat([tgtc, every, every, pc2], dim=-1)
+                hit = torch.cat([has_ping, ping_g & t_mine, kpr_g & p_mine, del_kpr], dim=-1)
             else:
-                rows_u = torch.cat([rows, tgtc], dim=-1)
-                cols_u = torch.cat([tgtc, rows], dim=-1)
-                hit = torch.cat([has_ping, has_ping], dim=-1)
+                tgt_g, ping_g = C.gather_many([tgtc, has_ping], group, len(batch))
+                t_mine = (tgt_g >= row0) & (tgt_g < row0 + nr)
+                rows_u = torch.cat([lrows, torch.where(t_mine, tgt_g - row0, 0)], dim=-1)
+                cols_u = torch.cat([tgtc, every], dim=-1)
+                hit = torch.cat([has_ping, ping_g & t_mine], dim=-1)
             # One scatter-max with a dtype-min no-op: a pingless row's
             # entry at (i, 0) can share its cell with another row's live
             # mark, so duplicates carry different values and only a max
             # reduction (never a plain put) is deterministic.
             val = torch.where(hit, tT, tmin)
             r64 = rows_u.long()
-            scores_f.scatter_reduce_(0, flat(r64 * BW + cols_u, n * BW).reshape(-1),
+            scores_f.scatter_reduce_(0, flat(r64 * BW + cols_u, nr * BW).reshape(-1),
                                      val.reshape(-1), reduce="amax", include_self=True)
 
             # Touched segments re-reduced from the updated scores and
@@ -253,9 +284,9 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
             # is exact; an untouched listed segment rewrites its own values.
             blocks_u = cols_u // W
             seg_cols = blocks_u[..., None] * W + seg  # [*, M, W] global columns
-            seg_t = scores_f[flat(r64[..., None] * BW + seg_cols, n * BW)]
+            seg_t = scores_f[flat(r64[..., None] * BW + seg_cols, nr * BW)]
             new_t, new_c, _ = _lex_k_smallest(seg_t, seg_cols, n_cand, tmax)
-            at = flat(r64 * B + blocks_u, n * B).reshape(-1)
+            at = flat(r64 * B + blocks_u, nr * B).reshape(-1)
             sum_t_f[at] = new_t.reshape(-1, n_cand)
             sum_c_f[at] = new_c.reshape(-1, n_cand)
 
@@ -263,7 +294,7 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
                 # One zero-tick EWMA sample per pinged edge: NaN -> 0.0,
                 # else 0.2 * old, in float32. Each row writes its own cell.
                 lat_f = lat.view(-1)
-                cell = flat(rows.long() * n + tgtc, n * n)
+                cell = flat(lrows.long() * n + tgtc, nr * n)
                 cur = lat_f[cell]
                 upd = torch.where(torch.isnan(cur), 0.0, 0.2 * cur)
                 lat_f[cell] = torch.where(has_ping, upd, cur)
@@ -282,11 +313,9 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
             # The anti-entropy ledger at the span's last tick, written once:
             # no request in flight, the (invariant) fingerprint and map size.
             member = S > 0
-            fp = membership_fingerprint(
-                member, st.id_view if st.id_view is not None else st.identity
-            )
+            fp = row_fp(member)
             n_row = member.sum(dim=-1, dtype=torch.int32)
-            led_p = torch.full((*batch, n), -1, dtype=torch.int32, device=dev)
+            led_p = torch.full((*batch, nr), -1, dtype=torch.int32, device=dev)
             if masked:
                 ran = (k_m > 0)[..., None]  # k_m == 0 leaves the ledger untouched
                 kprp = torch.where(ran, led_p, kprp)

@@ -29,7 +29,10 @@ Layers:
                  two-engine load driver with its kill-one-engine chaos.
 - chaos.py, obsdryrun.py — the fault-injection and observability lanes.
 
-The JAX package's ``shardpool.py`` (multi-device) is not ported yet.
+The JAX package's ``shardpool.py`` (the sharded lane pool) is not ported
+yet: it stands on ``parallel/``'s row-sharded tick, but ``torch.distributed``
+is multi-controller, so it needs rank 0 to serve and the other ranks to
+follow its steps (ROADMAP.md).
 """
 
 from kaboodle_tpu_torch.serve.engine import ServeEngine, ServeRequest

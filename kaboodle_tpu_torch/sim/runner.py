@@ -20,7 +20,8 @@ import dataclasses
 import torch
 
 from kaboodle_tpu_torch.config import SwimConfig
-from kaboodle_tpu_torch.ops.hashing import fingerprint_agreement, membership_fingerprint
+from kaboodle_tpu_torch.ops.hashing import membership_fingerprint
+from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.sim.kernel import make_tick_fn
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs, TickMetrics, idle_inputs
 from kaboodle_tpu_torch.telemetry.counters import ProtocolCounters, add_counters, zero_counters
@@ -74,28 +75,37 @@ def simulate_with_telemetry(
     return state, _stack(TickMetrics, metrics), _stack(ProtocolCounters, counters), rec
 
 
-def state_agreement(state: MeshState):
+def state_agreement(state: MeshState, group=None):
     """Fingerprint agreement of ``state`` as-is, without a tick:
-    ``(converged, fp_min, fp_max, n_alive)`` as in the tick's metrics."""
-    fp = membership_fingerprint(
-        state.state > 0,
-        state.id_view if state.id_view is not None else state.identity,
-    )
-    return fingerprint_agreement(state.alive, fp)
+    ``(converged, fp_min, fp_max, n_alive)`` as in the tick's metrics.
+
+    With a row group (``parallel/``), ``state`` is the rank's rows: the row
+    fingerprints are the rank's and the agreement is all-reduced, equal on
+    every rank."""
+    if state.id_view is not None:
+        ident = state.id_view
+    else:  # every peer's identity: the columns' record hashes
+        ident = C.gather_rows(state.identity, group)
+    fp = membership_fingerprint(state.state > 0, ident)
+    return C.fingerprint_agreement(state.alive, fp, group)
 
 
-def state_converged(state: MeshState) -> bool:
+def state_converged(state: MeshState, group=None) -> bool:
     """The agreement flag alone (see :func:`state_agreement`)."""
-    return bool(state_agreement(state)[0])
+    return bool(state_agreement(state, group)[0])
 
 
-def converge_loop(state: MeshState, tick, max_ticks: int) -> tuple[MeshState, int, bool]:
+def converge_loop(state: MeshState, tick, max_ticks: int,
+                  group=None) -> tuple[MeshState, int, bool]:
     """Tick with idle inputs until fingerprint agreement or ``max_ticks``.
 
     Returns ``(final_state, ticks_run, converged)``; convergence is judged
-    on end-of-tick state, and on entry."""
-    idle = idle_inputs(state.n, device=state.device)
-    conv = state_converged(state)
+    on end-of-tick state, and on entry. With a row group the state is the
+    rank's rows and the tick the row-sharded one: the entry test and every
+    tick's agreement are the whole mesh's, so every rank stops on the same
+    tick."""
+    idle = idle_inputs(state.state.shape[-2], device=state.device)
+    conv = state_converged(state, group)
     ticks = 0
     while not conv and ticks < max_ticks:
         state, m = tick(state, idle)

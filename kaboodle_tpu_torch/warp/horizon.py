@@ -33,6 +33,7 @@ import torch
 
 from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.ops.hashing import fingerprint_agreement, membership_fingerprint
+from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.phasegraph.exec import _take_vec
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs
 from kaboodle_tpu_torch.spec import KNOWN
@@ -44,15 +45,18 @@ def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def static_event_ticks(inputs: TickInputs) -> np.ndarray:
+def static_event_ticks(inputs: TickInputs, group=None) -> np.ndarray:
     """bool ``[T]``: tick carries a scheduled fault or manual event (host side).
 
     A tick is eventful iff its inputs can change delivery or state against
     the idle fault-free tick: a kill or revive, a partition vector that
     splits, a positive drop rate, an in-range manual ping, or a ``drop_ok``
-    matrix that blocks an edge. One fetch of the schedule per run."""
+    matrix that blocks an edge. One fetch of the schedule per run. With a
+    row group the inputs are the rank's rows: the partition vectors are
+    gathered whole and the mask is OR-reduced, equal on every rank."""
+    part_t = C.gather_rows(inputs.partition, group)
     kill, revive = _np(inputs.kill), _np(inputs.revive)
-    part, manual = _np(inputs.partition), _np(inputs.manual_target)
+    part, manual = _np(part_t), _np(inputs.manual_target)
     eventful = (
         kill.any(axis=-1)
         | revive.any(axis=-1)
@@ -62,6 +66,9 @@ def static_event_ticks(inputs: TickInputs) -> np.ndarray:
     )
     if inputs.drop_ok is not None:
         eventful |= ~_np(inputs.drop_ok).all(axis=(-2, -1))
+    if group is not None:
+        flags = torch.as_tensor(eventful.astype(np.int32), device=inputs.kill.device)
+        eventful = _np(C.reduce_max(flags, group)) > 0
     return eventful
 
 
@@ -82,13 +89,15 @@ def _row_fp(st: MeshState, member: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _kpr_fires(st: MeshState, fp: torch.Tensor, n_row: torch.Tensor) -> torch.Tensor:
+def _kpr_fires(st: MeshState, fp: torch.Tensor, n_row: torch.Tensor,
+               alive=None) -> torch.Tensor:
     """Per row: last tick's KnownPeersRequest would match at its alive
-    receiver (the dense tick's phase-0 anti-entropy candidate)."""
+    receiver (the dense tick's phase-0 anti-entropy candidate). ``fp``,
+    ``n_row`` and ``alive`` (default the state's) are every peer's."""
     p = st.kpr_partner
     return (
         (p >= 0)
-        & _take_vec(st.alive, p)
+        & _take_vec(st.alive if alive is None else alive, p)
         & (st.kpr_fp != _take_vec(fp, p))
         & (_take_vec(n_row, p) <= st.kpr_n)
     )
@@ -264,14 +273,19 @@ def decode_signature(row) -> ActivityClass:
 
 
 @functools.lru_cache(maxsize=None)
-def make_signature_fn(cfg: SwimConfig):
+def make_signature_fn(cfg: SwimConfig, group=None):
     """``MeshState -> int32[4]`` on the device: the activity signature.
 
     One reduction pass over (S, T) giving ``[class_key, earliest_expiry,
     n_alive, tick]``: everything the warp runner needs to pick a span
     program and length in one fetch. ``class_key`` packs the term bits
     with the active-row count bucketed to powers of two. All bits clear is
-    exactly :func:`make_quiescence_fn`'s predicate."""
+    exactly :func:`make_quiescence_fn`'s predicate.
+
+    With a row group (``parallel/``) the state is the rank's rows: every
+    term is reduced over the ranks (flags by MAX, the expiry by MIN, the
+    counts by SUM), so every rank reads the same signature and leaps the
+    same span."""
     unknown = set(hybrid_pred_terms(cfg)) - set(_OP_TERM_BITS)
     if unknown:
         raise NotImplementedError(
@@ -282,31 +296,42 @@ def make_signature_fn(cfg: SwimConfig):
         S, alive = st.state, st.alive
         nb = S.dim() - 2
         dev = S.device
+        row0, nr = C.row_range(st.n, group)
         idx = torch.arange(st.n, device=dev)
-        eye = idx[:, None] == idx[None, :]
+        eye = idx[row0:row0 + nr, None] == idx[None, :]
         member = S > 0
-        arow, acol = alive[..., :, None], alive[..., None, :]
+        ident_g, alive_g = C.gather_many([st.identity, alive], group, nb)
+        arow, acol = alive[..., :, None], alive_g[..., None, :]
 
         waiting = arow & member & (S != KNOWN)
         armed, expiry = _waiting_expiry(st, waiting, cfg, nb)
         wait_alive = _any(waiting & acol, nb)
         known_dead = _any(arow & (S == KNOWN) & ~eye & ~acol, nb)
         missing = _any(arow & acol & ~member & ~eye, nb)
-        fp = _row_fp(st, member)
-        conv, _, _, n_alive = fingerprint_agreement(alive, fp)
+        fp = membership_fingerprint(member, st.id_view if st.id_view is not None else ident_g)
+        conv, _, _, n_alive = C.fingerprint_agreement(alive, fp, group)
         if st.id_view is not None:
-            ident_stale = _any(arow & member & (st.id_view != st.identity[..., None, :]), nb)
+            ident_stale = _any(arow & member & (st.id_view != ident_g[..., None, :]), nb)
         else:
             ident_stale = torch.zeros_like(armed)
         n_row = member.sum(dim=-1, dtype=torch.int32)
-        kpr_live = _kpr_fires(st, fp, n_row).any(dim=-1)
-        any_a2 = armed & (expiry <= st.tick)
+        fp_g, n_row_g = C.gather_many([fp, n_row], group, nb)
+        kpr_live = _kpr_fires(st, fp_g, n_row_g, alive_g).any(dim=-1)
         join_owed = torch.zeros_like(armed)
         if cfg.join_broadcast_enabled:
             # Conservative: a lonely row becomes rebroadcast-due at a
             # data-dependent tick, so loneliness itself forces dense.
             join_owed = (alive & st.never_broadcast).any(dim=-1) | (
                 alive & (n_row <= 1)).any(dim=-1)
+        cnt = waiting.any(dim=-1).sum(dim=-1, dtype=torch.int32)
+        if group is not None:  # every rank's rows: one all-reduce a kind
+            flags = torch.stack([armed, wait_alive, known_dead, missing, ident_stale,
+                                 kpr_live, join_owed], dim=-1).to(torch.int32)
+            armed, wait_alive, known_dead, missing, ident_stale, kpr_live, join_owed = (
+                C.reduce_max(flags, group) > 0).unbind(-1)
+            expiry = C.reduce_min(expiry, group)
+            cnt = C.reduce_sum(cnt, group)
+        any_a2 = armed & (expiry <= st.tick)
 
         bits = torch.zeros_like(expiry)
         for flag, b in (
@@ -321,7 +346,6 @@ def make_signature_fn(cfg: SwimConfig):
         # (2^(b-2), 2^(b-1)] rows, bucket 0 none. A cache key, not a
         # correctness input. The thresholds 0, 1, 2, 4, .., 2^30 are made
         # on the device (no host copy).
-        cnt = waiting.any(dim=-1).sum(dim=-1, dtype=torch.int32)
         pow2 = 1 << torch.arange(31, dtype=torch.int32, device=dev)
         bucket = ((cnt > 0).to(torch.int32)
                   + (cnt[..., None] > pow2).sum(dim=-1, dtype=torch.int32))

@@ -1,8 +1,6 @@
 """Warp runners: signature-classed fast-forward between dense ticks.
 
-The port of ``kaboodle_tpu/warp/runner.py`` (its one-device and fleet
-halves; the ``mesh=`` sharded twin waits for the port's multi-device
-layer). The dense runners (``sim/runner.py``, ``fleet/core.py``) run one
+The port of ``kaboodle_tpu/warp/runner.py``. The dense runners (``sim/runner.py``, ``fleet/core.py``) run one
 full tick per simulated tick. These runners cut a run into *spans* bounded
 by the event horizon (``warp/horizon.py``) and pick each span's program by
 the entry state's **activity signature**:
@@ -35,6 +33,13 @@ of its entry state under the counter-keyed draws, so a span's state delta
 (byte XOR of entry and exit leaves) is banked on the host under the span's
 identity and entry-state digest, and a recurring span is replayed from it
 with no tick or leap run.
+
+**Sharded warp** (``mesh=`` on :func:`simulate_warped` and
+:func:`run_warped`): the state is the rank's rows of a ``parallel`` mesh;
+the dense stretches run the row-sharded tick, the leaps the row-sharded
+span program, the signature and the schedule's event mask are reduced
+over the ranks, so every rank takes the same spans; a memo replay happens
+only when every rank hits, and the memo key carries the mesh.
 
 **Per-member fleet warp**: :func:`run_fleet_warped` fetches the ``[E, 4]``
 signature rows once a round; every leapable member leaps to its own
@@ -303,10 +308,53 @@ def _span_chunks(k: int) -> tuple[list[int], int]:
     return chunks, rem
 
 
-def _get_leap(cfg: SwimConfig, k: int, hybrid: bool):
-    """One bucketed span program through the bounded cache."""
+def _get_leap(cfg: SwimConfig, k: int, hybrid: bool, mesh=None):
+    """One bucketed span program through the bounded cache (the sharded
+    program, under its own family, with a mesh)."""
     kind = "hybrid" if hybrid else "strict"
-    return leap_cache.get(cfg, kind, k, lambda: make_warp_leap(cfg, k, hybrid=hybrid))
+    if mesh is None:
+        return leap_cache.get(cfg, kind, k, lambda: make_warp_leap(cfg, k, hybrid=hybrid))
+    from kaboodle_tpu_torch.parallel.mesh import constrain_state, peer_group
+
+    def build():
+        leap = make_warp_leap(cfg, k, hybrid=hybrid, group=peer_group(mesh))
+        return lambda st: constrain_state(leap(st), mesh)
+
+    return leap_cache.get((cfg, mesh), kind, k, build)
+
+
+def _dense_tick(cfg: SwimConfig, faulty: bool, mesh=None, telemetry: bool = False):
+    """The dense tick of the runners: the row-sharded one with a mesh."""
+    if mesh is None:
+        return make_dense_tick(cfg, faulty=faulty, telemetry=telemetry)
+    from kaboodle_tpu_torch.parallel.mesh import make_sharded_tick
+
+    return make_sharded_tick(cfg, mesh, faulty=faulty, telemetry=telemetry)
+
+
+def _group(mesh):
+    from kaboodle_tpu_torch.parallel.mesh import peer_group
+
+    return None if mesh is None else peer_group(mesh)
+
+
+def _memo_hit(memo, key, kind: str, mesh):
+    """The memo's entry for ``key``, or None. With a mesh each rank holds
+    its own rows' deltas: a replay happens only when every rank hits."""
+    hit = memo.get(key, kind=kind)
+    if mesh is None:
+        return hit
+    from kaboodle_tpu_torch.parallel import collectives as C
+
+    flag = torch.tensor([0 if hit is None else 1], dtype=torch.int32,
+                        device=_mesh_device(mesh))
+    return hit if int(C.reduce_min(flag, _group(mesh))[0]) else None
+
+
+def _mesh_device(mesh):
+    from kaboodle_tpu_torch.parallel.mesh import mesh_device
+
+    return mesh_device(mesh)
 
 
 @dataclasses.dataclass
@@ -462,6 +510,7 @@ def simulate_warped(
     ledger: WarpLedger | None = None,
     memo: SpanMemo | None = None,
     warp_mode: str = "exact",
+    mesh=None,
 ):
     """Run a stacked ``[T]`` schedule, fast-forwarding (near-)quiescent spans.
 
@@ -485,14 +534,17 @@ def simulate_warped(
 
     ``memo`` banks every span's state delta and replays recurring spans
     (leaped and dense) from it. ``warp_mode="distributional"`` widens the
-    hybrid class (see :func:`_classify`)."""
+    hybrid class (see :func:`_classify`). ``mesh`` runs the sharded twins
+    (module docstring): ``state`` and ``inputs`` are the rank's rows, and
+    every rank must call this with the same arguments."""
     _check_warp_mode(warp_mode)
     n_ticks = int(inputs.kill.shape[0])
-    eventful = static_event_ticks(inputs)
-    tick = make_dense_tick(cfg, faulty=faulty, telemetry=telemetry)
-    signature = make_signature_fn(cfg)
+    group = _group(mesh)
+    eventful = static_event_ticks(inputs, group)
+    tick = _dense_tick(cfg, faulty, mesh, telemetry)
+    signature = make_signature_fn(cfg, group)
     recheck_every = max(1, int(recheck_every))
-    family = repr((cfg, faulty, telemetry, warp_mode))
+    family = repr((cfg, mesh, faulty, telemetry, warp_mode))
     host_inputs = _host_leaves(inputs) if memo is not None else None
     dense_ticks: list[int] = []
     rows = []
@@ -515,7 +567,7 @@ def simulate_warped(
                 if memo is not None:
                     entry_leaves = _host_leaves(state)
                     memo_key = ("leap", family, mode, k, cls.key, _digest_leaves(entry_leaves))
-                    hit = memo.get(memo_key, kind=mode)
+                    hit = _memo_hit(memo, memo_key, mode, mesh)
                     if hit is not None:
                         state = _memo_replay(state, entry_leaves, hit[0])
                         if ledger is not None:
@@ -526,7 +578,7 @@ def simulate_warped(
                         continue
                 with host_span(f"leap_span:{mode}:{k}"):
                     for chunk in chunks:
-                        state = _get_leap(cfg, chunk, mode == "hybrid")(state)
+                        state = _get_leap(cfg, chunk, mode == "hybrid", mesh)(state)
                 if memo is not None:
                     _memo_store(memo, memo_key, entry_leaves, state)
                 if ledger is not None:
@@ -551,7 +603,7 @@ def simulate_warped(
                 _digest_leaves(entry_leaves),
                 _digest_leaves([x[t:stop] for x in host_inputs]),
             )
-            hit = memo.get(memo_key, kind="dense")
+            hit = _memo_hit(memo, memo_key, "dense", mesh)
             if hit is not None:
                 state = _memo_replay(state, entry_leaves, hit[0])
                 dense_ticks.extend(range(t, stop))
@@ -610,6 +662,7 @@ def run_warped(
     ledger: WarpLedger | None = None,
     memo: SpanMemo | None = None,
     warp_mode: str = "exact",
+    mesh=None,
 ) -> tuple[MeshState, int, bool]:
     """Advance a fault-free mesh exactly ``ticks`` ticks, leaping spans.
 
@@ -619,13 +672,16 @@ def run_warped(
     expiry ticks dense; anything else runs dense, re-checking the signature
     every ``recheck_every`` ticks. Returns ``(state, ticks_run, converged)``
     as ``sim.runner.run_until_converged`` does, with ``ticks_run == ticks``
-    always and ``converged`` evaluated on the final state."""
+    always and ``converged`` evaluated on the final state. ``mesh`` runs the
+    sharded twins on the rank's rows of the state, as in
+    :func:`simulate_warped`; ``converged`` is then the whole mesh's."""
     _check_warp_mode(warp_mode)
-    tick = make_dense_tick(cfg, faulty=False)
-    signature = make_signature_fn(cfg)
-    idle = idle_inputs(state.n, device=state.device)
+    group = _group(mesh)
+    tick = _dense_tick(cfg, False, mesh)
+    signature = make_signature_fn(cfg, group)
+    idle = idle_inputs(state.state.shape[-2], device=state.device)
     recheck_every = max(1, int(recheck_every))
-    family = repr((cfg, "steady", warp_mode))
+    family = repr((cfg, mesh, "steady", warp_mode))
     t = 0
     while t < ticks:
         cls = decode_signature(signature(state))
@@ -638,7 +694,7 @@ def run_warped(
             if memo is not None:
                 entry_leaves = _host_leaves(state)
                 memo_key = ("leap", family, mode, k, cls.key, _digest_leaves(entry_leaves))
-                hit = memo.get(memo_key, kind=mode)
+                hit = _memo_hit(memo, memo_key, mode, mesh)
                 if hit is not None:
                     state = _memo_replay(state, entry_leaves, hit[0])
                     if ledger is not None:
@@ -646,7 +702,7 @@ def run_warped(
                     t += k
                     continue
             for chunk in chunks:
-                state = _get_leap(cfg, chunk, mode == "hybrid")(state)
+                state = _get_leap(cfg, chunk, mode == "hybrid", mesh)(state)
             if memo is not None:
                 _memo_store(memo, memo_key, entry_leaves, state)
             if ledger is not None:
@@ -659,7 +715,7 @@ def run_warped(
             # Idle inputs: the entry state alone keys the span.
             entry_leaves = _host_leaves(state)
             memo_key = ("dense", family, stop - t, cls.key, _digest_leaves(entry_leaves))
-            hit = memo.get(memo_key, kind="dense")
+            hit = _memo_hit(memo, memo_key, "dense", mesh)
             if hit is not None:
                 state = _memo_replay(state, entry_leaves, hit[0])
                 if ledger is not None:
@@ -673,7 +729,7 @@ def run_warped(
             t += 1
         if memo is not None:
             _memo_store(memo, memo_key, entry_leaves, state)
-    return state, t, state_converged(state)
+    return state, t, state_converged(state, group)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ with its peak and a SHA-256 digest of the run's final state and metrics
 (every leaf's bytes) to show the two trees compute the same bits, and the
 facade script at capacity 8,192 (``facade_script``: wall and host event
 delivery per tick, and its tick counts, which must agree), and the warp
-drain (``warp_drain_case``: its churn half dense, then the calm half
+drain (``warp_drain_case`` at its 8,192 ticks: its churn half dense, then the calm half
 through ``simulate_warped``; both walls, the dense tick count and the
 final state's digest). Prints
 the card line, one JSON line per run, then the summary: each side's walls,
@@ -72,7 +72,7 @@ del cfinal, metrics
 facade = chip_smoke.facade_script(8192, 512, 32, "cuda", log_events=False)
 from kaboodle_tpu_torch.sim import simulate
 from kaboodle_tpu_torch.warp.runner import simulate_warped
-cfg, dst, churn_in, calm_in = chip_smoke.warp_drain_case()
+cfg, dst, churn_in, calm_in = chip_smoke.warp_drain_case(ticks=8192)
 (dst, _), drain_churn_s, _ = timed(lambda s: simulate(s, churn_in, cfg, faulty=True), dst)
 (dfinal, dense_ticks, _), drain_warp_s, _ = timed(
     lambda s: simulate_warped(s, calm_in, cfg, faulty=True), dst)

@@ -11,6 +11,8 @@ filtered -- the same function -- and two that
 compute something else, to split the kernel's time: ``filter_only`` drops
 the inserts (the filter still runs), ``loads_only`` also drops the filter
 (the row's words are only loaded and folded into a register).
+The entry point takes the row count and row offset of a row slice
+(``n_rows, row0, n``), so ``--other`` needs a checkout that has them.
 
 Every build is compiled with the flags of ``ops/_cuda.py`` (one nvcc each,
 at once) and loaded with ctypes through the same C entry point. At the
@@ -188,7 +190,8 @@ def main() -> int:
         def run(lib):
             rc = lib.kb_fused_oldest_k(
                 state.data_ptr(), timer.data_ptr(), timer.element_size(), alive.data_ptr(), k,
-                idx.data_ptr(), valid.data_ptr(), n, vec, _cuda.stream_handle(state.device))
+                idx.data_ptr(), valid.data_ptr(), n, 0, n, vec,
+                _cuda.stream_handle(state.device))
             if rc:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
 

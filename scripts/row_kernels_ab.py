@@ -8,6 +8,8 @@ checkout's ``common.cuh``), for example the parent commit unpacked with
 ``git archive``. ``--probes`` adds builds of this tree's sources with one
 edit each (the table ``PROBES``: rows a block, chunks loaded ahead, rows a
 band), each computing the same function.
+The entry points take the row count and row offset of a row slice
+(``n_rows, row0, n``), so ``--other`` needs a checkout that has them.
 
 Every build is compiled with the flags of ``ops/_cuda.py`` (one nvcc each,
 all at once) into ``_build/`` under its own name and loaded with ctypes
@@ -127,7 +129,7 @@ def launcher(kernel: str, n: int, dtype: str, gen):
         def run(lib):
             return lib.kb_fused_suspicion(
                 state.data_ptr(), timer.data_ptr(), timer.element_size(), alive.data_ptr(), thr,
-                *(o.data_ptr() for o in outs), n, vec, stream)
+                *(o.data_ptr() for o in outs), n, 0, n, vec, stream)
     else:
         ident = idv if kernel == "fused_fp_idv" else peer_record_hash(
             torch.arange(n, device="cuda"), idv[0])
@@ -137,7 +139,8 @@ def launcher(kernel: str, n: int, dtype: str, gen):
 
         def run(lib):
             return lib.kb_fused_fp(state.data_ptr(), ident.data_ptr(), outs[0].data_ptr(),
-                                   outs[1].data_ptr(), n, int(ident.dim() == 2), vec, stream)
+                                   outs[1].data_ptr(), n, n, int(ident.dim() == 2), vec,
+                                   stream)
     return run, outs, want, {"vec": vec, "rows_alive": int(alive.sum())}
 
 

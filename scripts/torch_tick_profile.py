@@ -13,11 +13,14 @@ avalanche under drop, a drop tick in the partition, the first healed
 tick), and the fleet's drop-rate sweep (``fleet/bench.py::sweep``, E = 256
 meshes of N = 1,024, ``drop_rate=0:0.3:16``, at most 64 ticks), and the
 warp pass of ``BENCH_warp3.json``'s drain (``chip_smoke.warp_drain_case``:
-N = 1,024, ``simulate_warped`` over 1,024 calm ticks from the entry of the
+N = 1,024 and its 8,192 ticks, ``simulate_warped`` over 1,024 calm ticks from the entry of the
 pass's first leap, a hybrid span, through the dense season after it), and
 the sparse bench's first chunk (``simulate_sparse``: 8 ticks from the boot
-of N = 2^20 peers, K = 16, ``chip_smoke.sparse_spec``), random
-mode -- twice each: once plain for the wall time (ending in
+of N = 2^20 peers, K = 16, ``chip_smoke.sparse_spec``), and config 3's
+first 16 churn ticks twice, through the dense tick and through the
+row-sharded tick on a one-rank NCCL group (``chip_smoke.py``'s
+``sharded`` cell: the collectives the sharded path calls, on one card),
+random mode -- twice each: once plain for the wall time (ending in
 ``torch.cuda.synchronize()``), once under ``torch.profiler`` for the device
 time by kernel. The dense cells are warmed up by a third run first; the
 blocked and fleet cells, tens of seconds each, are not. Prints one JSON line per
@@ -45,7 +48,7 @@ HAND_KERNELS = ("fused_fp_kernel", "fused_suspicion_kernel", "fused_oldest_k_ker
 WARP_WINDOW = 1024
 CELLS = ("boot_n16384_lean", "churn_config3_n8192", "chunked_boot_config4_n65536",
          "chunked_config5_n65536_3ticks", "fleet_sweep_e256_n1024", "warp_drain_n1024",
-         "sparse_boot_n1048576")
+         "sparse_boot_n1048576", "churn16_config3_n8192", "sharded_churn16_config3_n8192")
 
 
 def _device_us(evt, attrs=("self_device_time_total", "self_cuda_time_total")) -> float:
@@ -125,7 +128,7 @@ def _warp_drain_case(chip_smoke, device="cuda", window: int = WARP_WINDOW):
     from kaboodle_tpu_torch.sim import simulate
     from kaboodle_tpu_torch.warp.runner import WarpLedger, simulate_warped
 
-    cfg, st, churn, calm = chip_smoke.warp_drain_case(device=device)
+    cfg, st, churn, calm = chip_smoke.warp_drain_case(ticks=8192, device=device)
     box = {}
 
     def make():
@@ -156,6 +159,37 @@ def _sparse_case(chip_smoke, ticks: int = 8):
     idle = sparse_idle_inputs(n, ticks=ticks)
     return (lambda: init_sparse_state(n, spec, seed=0),
             lambda st: simulate_sparse(st, idle, bench_cfg(), spec), True)
+
+
+def _churn16(chip_smoke, sharded: bool, ticks: int = 16):
+    """``(make, run, warm)`` of config 3's first ``ticks`` churn ticks, all
+    kernel flags on: the dense tick, or the row-sharded tick on a one-rank
+    NCCL group (made here, or the one the process has)."""
+    from kaboodle_tpu_torch.sim.kernel import make_tick_fn
+
+    sc, make, _ = chip_smoke.churn_case()
+    cfg = chip_smoke.all_kernels_cfg()
+    inputs = sc.build()
+    if sharded:
+        from kaboodle_tpu_torch.parallel import (
+            make_mesh,
+            make_sharded_tick,
+            shard_inputs,
+            shard_state,
+        )
+
+        mesh = make_mesh()
+        tick = make_sharded_tick(cfg, mesh)
+        inputs = shard_inputs(inputs, mesh, stacked=True)
+        make_state = lambda: shard_state(make(), mesh)  # noqa: E731
+    else:
+        tick, make_state = make_tick_fn(cfg, faulty=True), make
+
+    def run(st):
+        for t in range(ticks):
+            st, _ = tick(st, inputs.at(t))
+
+    return make_state, run, True
 
 
 def _per_tick(cell: dict, box: dict, steps: int = 256, ticks: int = 64) -> None:
@@ -203,6 +237,7 @@ def main() -> int:
                     help=f"comma-separated cells to run (default: all of {', '.join(CELLS)})")
     args = ap.parse_args()
     import torch
+    import torch.distributed
 
     if not torch.cuda.is_available():
         print("torch_tick_profile: no CUDA device is available", file=sys.stderr)
@@ -222,6 +257,8 @@ def main() -> int:
             lambda: chip_smoke.fleet_args("--sweep", chip_smoke.FLEET_SWEEP), _fleet_sweep, False),
         "warp_drain_n1024": lambda: _warp_drain_case(chip_smoke),
         "sparse_boot_n1048576": lambda: _sparse_case(chip_smoke),
+        "churn16_config3_n8192": lambda: _churn16(chip_smoke, sharded=False),
+        "sharded_churn16_config3_n8192": lambda: _churn16(chip_smoke, sharded=True),
     }
     cells = []
     for name in args.cells.split(","):
@@ -231,6 +268,8 @@ def main() -> int:
             _per_tick(cells[-1], case[3])
         line = {k: v for k, v in cells[-1].items() if k not in ("top_kernels", "ranges")}
         print(json.dumps(line), flush=True)
+    if torch.distributed.is_initialized():  # the sharded cell's one-rank group
+        torch.distributed.destroy_process_group()
     out = {"card": card, "torch": torch.__version__, "cells": cells}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

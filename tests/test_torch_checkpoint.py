@@ -388,3 +388,107 @@ def test_sparse_checkpoint_guards(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             checkpoint.load_sparse(sp)
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints: 4 gloo ranks save and load, then 2 ranks load what
+# the 4 saved (kaboodle_tpu_torch.parallel.worker; one job each, started
+# once for the module).
+
+SHARD_N, SHARD_TICKS = 32, 6
+
+
+def _port_run(n, ticks, **init):
+    st = tstate.init_state(n, device=CPU, **init)
+    return runner_simulate(st, ticks)
+
+
+def runner_simulate(st, ticks):
+    from kaboodle_tpu_torch.sim.runner import simulate
+
+    return simulate(st, tstate.idle_inputs(st.n, ticks=ticks, device=CPU), SwimConfig(),
+                    faulty=False)[0]
+
+
+LEAN_INIT = dict(track_latency=False, instant_identity=True, timer_dtype=torch.int16)
+
+
+@pytest.fixture(scope="module")
+def sharded_ckpt(tmp_path_factory):
+    from kaboodle_tpu_torch.parallel.worker import start_workers
+
+    tmp = tmp_path_factory.mktemp("sharded_ckpt")
+    # JAX archives (written by the JAX package) of two states the port's
+    # dense tick reached: the full state and the lean one.
+    for name, init in (("full", dict(seed=2)), ("lean", dict(seed=4, **LEAN_INIT))):
+        st = _port_run(SHARD_N, 3, **init)
+        jst = jstate.MeshState(**{k: None if v is None else jnp.asarray(v)
+                                  for k, v in tstate.state_to_numpy(st).items()})
+        jckpt.save(str(tmp / f"jax_{name}.npz"), jst)
+    four = [
+        dict(name="load_full", kind="checkpoint", op="load_npz", path=str(tmp / "jax_full.npz")),
+        dict(name="load_lean", kind="checkpoint", op="load_npz", path=str(tmp / "jax_lean.npz")),
+        dict(name="save_npz", kind="checkpoint", op="save_npz", n=SHARD_N, ticks=SHARD_TICKS,
+             init=dict(seed=6), path=str(tmp / "saved.npz")),
+        dict(name="save_async", kind="checkpoint", op="save_async", n=SHARD_N,
+             ticks=SHARD_TICKS, init=dict(seed=6), path=str(tmp / "dcp")),
+    ]
+    two = [dict(name="load_dcp", kind="checkpoint", op="load_dcp", n=SHARD_N, init=dict(seed=6),
+                path=str(tmp / "dcp"))]
+    for c in four + two:
+        c["out"] = str(tmp / f"{c['name']}_out.npz")
+    digests = start_workers(4, {"device": "cpu", "timeout_s": 60, "cases": four},
+                            str(tmp / "four.json"), timeout_s=90).wait()
+    digests.update(start_workers(2, {"device": "cpu", "timeout_s": 60, "cases": two},
+                                 str(tmp / "two.json"), timeout_s=90).wait())
+    arrays = {}
+    for c in four + two:
+        with np.load(c["out"]) as z:
+            arrays[c["name"]] = {k[len("state."):]: z[k] for k in z.files}
+    return tmp, digests, arrays
+
+
+@pytest.mark.parametrize("name", ["full", "lean"])
+def test_load_with_mesh_gives_each_rank_its_rows(sharded_ckpt, name):
+    """``load(mesh=)`` of a JAX archive: each of 4 ranks holds its 8 rows,
+    equal to ``shard_state`` of the whole load; gathered, the archive."""
+    tmp, digests, arrays = sharded_ckpt
+    for d in digests[f"load_{name}"]:
+        assert d["rows_equal"] and d["rows"] == SHARD_N // 4
+    want = _leaves(jckpt.load(str(tmp / f"jax_{name}.npz")))
+    _assert_same({k: v for k, v in want.items() if v is not None}, arrays[f"load_{name}"],
+                 f"load {name}")
+
+
+def test_sharded_save_writes_the_jax_schema(sharded_ckpt):
+    """``save(mesh=)``: the ranks' rows gathered, rank 0 writes one archive
+    the JAX package loads, equal to the port's dense run."""
+    tmp, _, _ = sharded_ckpt
+    want = tstate.state_to_numpy(_port_run(SHARD_N, SHARD_TICKS, seed=6))
+    got = _leaves(jckpt.load(str(tmp / "saved.npz")))
+    _assert_same({k: v for k, v in want.items() if v is not None},
+                 {k: v for k, v in got.items() if v is not None}, "sharded save")
+
+
+def test_save_async_at_four_ranks_loads_at_two(sharded_ckpt):
+    """A DCP save of the ranks' rows at R = 4 loads back at R = 2 through
+    ``load_orbax(mesh=)`` (a ``meta`` template), bit-equal: DCP reshards."""
+    _, digests, arrays = sharded_ckpt
+    assert all(d["rows"] == SHARD_N // 2 for d in digests["load_dcp"])
+    _assert_same(arrays["save_async"], arrays["load_dcp"], "dcp 4 -> 2")
+    want = tstate.state_to_numpy(_port_run(SHARD_N, SHARD_TICKS, seed=6))
+    _assert_same({k: v for k, v in want.items() if v is not None}, arrays["load_dcp"],
+                 "dcp vs dense")
+
+
+def test_save_async_without_a_mesh_round_trips(tmp_path):
+    """One process, no group: ``save_async`` / ``load_orbax`` of a whole
+    state round-trip every leaf in its own dtype."""
+    import torch.distributed as dist
+
+    st = _port_run(16, 3, seed=1, timer_dtype=torch.int16)
+    checkpoint.save_async(tmp_path / "dcp", st).wait_until_finished()
+    back = checkpoint.load_orbax(tmp_path / "dcp", tstate.init_state(
+        16, device="meta", timer_dtype=torch.int16), device=CPU)
+    _assert_same(tstate.state_to_numpy(st), tstate.state_to_numpy(back), "dcp no mesh")
+    assert not dist.is_initialized()

@@ -334,7 +334,8 @@ def test_phasegraph_plan_lines_equal_jax(capsys):
     assert [ln for ln in out if ln.startswith("phasegraph: plan")] == want
     report = json.loads(out[-1])
     assert report["ok"] and report["engines"] == {
-        k: "ok" for k in ("chunked", "fleet", "fused", "warp", "hybrid", "hybrid_masked")}
+        k: "ok" for k in ("chunked", "sharded", "fleet", "fused", "warp", "hybrid",
+                          "hybrid_masked")}
 
 
 def test_fleet_telemetry_writes_the_jax_records(tmp_path):
@@ -342,7 +343,7 @@ def test_fleet_telemetry_writes_the_jax_records(tmp_path):
 
     sweep = ["--ensemble", "8", "--n", "16", "--sweep", "drop_rate=0:0.3:4", "--max-ticks", "8",
              "--telemetry"]
-    # One device: the port's sharded sweep waits for its multi-device slice.
+    # One device on both sides: the unsharded sweep.
     jrc, jline, _ = run(jax_fleet_main, [*sweep, str(tmp_path / "jax.jsonl"), "--platform", "cpu",
                                          "--shard", "none"])
     rc, line, _ = run(main, ["fleet", *sweep, str(tmp_path / "port.jsonl"), *CPU])

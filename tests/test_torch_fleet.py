@@ -441,3 +441,121 @@ def test_fleet_numpy_round_trip(lean):
     _assert_same(host["mesh"], back["mesh"], "round trip")
     np.testing.assert_array_equal(back["drop_rate"], host["drop_rate"])
     assert back["drop_rate"].dtype == np.float32
+
+
+# ---------------------------------------------------------------------------
+# sharded fleets: 4 gloo ranks (kaboodle_tpu_torch.parallel.worker), started
+# once for the module; the references are the port's dense fleet and
+# standalone runs, which the tests above hold to the JAX package's.
+
+SHARD_RANKS = 4
+SWEEP_ARGV = ["--ensemble", "8", "--n", "16", "--sweep", "drop_rate=0:0.3:4", "--max-ticks", "8"]
+FLEET_2D_CFG = dict(join_broadcast_enabled=False, backdate_gossip_inserts=False)
+SHARDED_FLEET_CASES = {
+    # 1-D ensemble mesh: 2 of 8 members a rank, 8 fault-free ticks.
+    "fleet_1d": dict(kind="fleet", n=16, ensemble=8, ticks=8, faulty=False),
+    # 2-D 2 x 2 mesh: 2 members a rank, 8 of 16 rows each, the masked loop.
+    "fleet_2d": dict(kind="fleet", n=16, ensemble=4, max_ticks=64, peer_devices=2,
+                     cfg=FLEET_2D_CFG, init=dict(ring_contacts=2)),
+    # 2-D, a broadcast boot: the join replies' transposes and ring unions
+    # over the peer sub-group, behind the ensemble axis.
+    "fleet_2d_boot": dict(kind="fleet", n=16, ensemble=4, ticks=6, peer_devices=2,
+                          faulty=False),
+}
+
+
+@pytest.fixture(scope="module")
+def sharded_fleets(tmp_path_factory):
+    from kaboodle_tpu_torch.parallel.worker import start_workers
+
+    tmp = tmp_path_factory.mktemp("sharded_fleet")
+    cases = [dict(name=name, out=str(tmp / f"{name}.npz"), **c)
+             for name, c in SHARDED_FLEET_CASES.items()]
+    cases += [dict(name="checks", kind="fleet_checks"),
+              dict(name="sweep", kind="sweep", argv=SWEEP_ARGV)]
+    digests = start_workers(SHARD_RANKS, {"device": "cpu", "timeout_s": 60, "cases": cases},
+                            str(tmp / "cases.json"), timeout_s=120).wait()
+    arrays = {}
+    for name in SHARDED_FLEET_CASES:
+        with np.load(tmp / f"{name}.npz") as z:
+            arrays[name] = {k: z[k] for k in z.files}
+    return digests, arrays
+
+
+def test_fleet_member_matches_single_mesh_sharded(sharded_fleets):
+    """1-D ensemble mesh: members split across 4 ranks, each bit-equal to
+    its standalone run; each rank held 2 whole members."""
+    digests, arrays = sharded_fleets
+    got = arrays["fleet_1d"]
+    assert all((d["local_members"], d["local_rows"]) == (2, 16) for d in digests["fleet_1d"])
+    cfg = SwimConfig()
+    for k in (0, 3, 7):
+        ref, rm = runner.simulate(tstate.init_state(16, seed=k, device=CPU),
+                                  tstate.idle_inputs(16, ticks=8, device=CPU), cfg, faulty=False)
+        want = tstate.state_to_numpy(ref)
+        for f, w in want.items():
+            if w is not None:
+                g = got["state." + f][k]
+                if np.issubdtype(w.dtype, np.floating):
+                    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=f)
+                    g, w = np.nan_to_num(g), np.nan_to_num(w)
+                np.testing.assert_array_equal(g, w, err_msg=f"member {k}: {f}")
+        np.testing.assert_array_equal(got["converged"][:, k], rm.converged.numpy())
+
+
+def test_fleet_2d_mesh_converge_matches_dense(sharded_fleets):
+    """E x peers 2-D mesh: the masked convergence loop over both axes
+    equals the dense fleet run bit-exactly."""
+    digests, arrays = sharded_fleets
+    got = arrays["fleet_2d"]
+    assert all((d["local_members"], d["local_rows"]) == (2, 8) for d in digests["fleet_2d"])
+    dn, ct, done = tfleet.run_fleet_until_converged(
+        tfleet.init_fleet(16, 4, ring_contacts=2, device=CPU), SwimConfig(**FLEET_2D_CFG),
+        max_ticks=64)
+    np.testing.assert_array_equal(got["conv_tick"], ct.numpy())
+    np.testing.assert_array_equal(got["done"], done.numpy())
+    for f, w in tstate.state_to_numpy(dn.mesh).items():
+        if w is not None:
+            np.testing.assert_array_equal(np.nan_to_num(got["state." + f]), np.nan_to_num(w),
+                                          err_msg=f)
+
+
+def test_fleet_shard_divisibility_checks(sharded_fleets):
+    """An E the ensemble axis does not divide, an N the peer axis does not
+    divide and a mesh bigger than the job each raise ValueError."""
+    digests, _ = sharded_fleets
+    assert all(d["raised"] == [True, True, True] for d in digests["checks"])
+
+
+def test_sweep_shard_ensemble_reports_sharded(sharded_fleets, capsys):
+    """``--shard ensemble`` over 4 ranks: ``"sharded": true`` in the line,
+    every statistic equal to the one-process sweep's."""
+    digests, _ = sharded_fleets
+    lines = [d["line"] for d in digests["sweep"]]
+    assert all(line == lines[0] for line in lines) and lines[0]["sharded"] is True
+    want = tbench.run_sweep(tbench.build_parser().parse_args(
+        [*SWEEP_ARGV, "--device", "cpu", "--shard", "none"]))
+    capsys.readouterr()
+    assert want["sharded"] is False
+    # Through JSON: a bucket that never converged has a NaN mean on both sides.
+    assert json.dumps({k: v for k, v in lines[0].items() if k != "sharded"}, sort_keys=True) == \
+        json.dumps({k: v for k, v in want.items() if k not in ("sharded", "wall_s")},
+                   sort_keys=True)
+
+
+def test_fleet_2d_mesh_boot_matches_dense(sharded_fleets):
+    """E x peers 2-D mesh, a broadcast boot (joins on every member): the
+    sharded fleet tick equals the dense fleet tick, member by member."""
+    _, arrays = sharded_fleets
+    got = arrays["fleet_2d_boot"]
+    fleet = tfleet.init_fleet(16, 4, device=CPU)
+    dn, m = tfleet.simulate_fleet(fleet, tfleet.fleet_idle_inputs(16, 4, ticks=6, device=CPU),
+                                  SwimConfig(), faulty=False)
+    np.testing.assert_array_equal(got["converged"], m.converged.numpy())
+    for f, w in tstate.state_to_numpy(dn.mesh).items():
+        if w is not None:
+            np.testing.assert_array_equal(np.isnan(got["state." + f]) if w.dtype.kind == "f"
+                                          else got["state." + f],
+                                          np.isnan(w) if w.dtype.kind == "f" else w, err_msg=f)
+            np.testing.assert_array_equal(np.nan_to_num(got["state." + f]), np.nan_to_num(w),
+                                          err_msg=f)

@@ -421,6 +421,10 @@ def test_package_imports_without_jax_or_reference_package():
                    "kaboodle_tpu_torch.analysis.core", "kaboodle_tpu_torch.analysis.conc.rules",
                    "kaboodle_tpu_torch.analysis.cli"}
         assert slice11 <= set(names), slice11 - set(names)
+        slice12 = {"kaboodle_tpu_torch.parallel", "kaboodle_tpu_torch.parallel.collectives",
+                   "kaboodle_tpu_torch.parallel.mesh", "kaboodle_tpu_torch.parallel.worker",
+                   "kaboodle_tpu_torch.fleet.sharding"}
+        assert slice12 <= set(names), slice12 - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

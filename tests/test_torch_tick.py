@@ -222,3 +222,109 @@ def test_simulate_matches_scan_and_alive_trajectory():
     assert tm.converged.shape == (20,)
     np.testing.assert_array_equal(tfinal.alive.numpy(), tsc.alive_trajectory()[-1])
     assert torch.equal(runner.state_agreement(tfinal)[0], tm.converged[-1])
+
+
+# ---------------------------------------------------------------- row slices
+# The row-sharded tick (parallel/) runs each kernel and each draw on a
+# rank's rows: a [B, N] slice at row offset row0. The rows of the whole
+# must equal the function on the slice.
+
+ROW_N, ROW_B = 48, 12
+
+
+def _row_inputs(seed=0, timer_dtype=torch.int16):
+    g = torch.Generator().manual_seed(seed)
+    state = torch.randint(0, 4, (ROW_N, ROW_N), generator=g, dtype=torch.int8)
+    timer = torch.randint(-12, 40, (ROW_N, ROW_N), generator=g, dtype=torch.int32)
+    sentinel = torch.rand((ROW_N, ROW_N), generator=g) < 0.05
+    timer = torch.where(sentinel, torch.iinfo(timer_dtype).max, timer).to(timer_dtype)
+    alive = torch.rand((ROW_N,), generator=g) < 0.8
+    idv = torch.randint(-2**31, 2**31 - 1, (ROW_N, ROW_N), generator=g, dtype=torch.int32)
+    return state, timer, alive, idv
+
+
+def _kernel_on(name, state, timer, alive, ident, row0, plain):
+    """K1-K4 on rows ``row0 ..`` (``ident``: the rows' identity views for
+    fp_idv, every peer's record hashes for fp_hash)."""
+    from kaboodle_tpu_torch.ops import fused_fp, fused_oldest_k, fused_suspicion
+
+    if name.startswith("fp_"):
+        fn = fused_fp.fused_fp_count_plain if plain else fused_fp.fused_fp_count
+        return fn(state, ident)
+    if name == "suspicion":
+        fn = fused_suspicion.fused_suspicion_plain if plain else fused_suspicion.fused_suspicion
+        return fn(state, timer, alive, 9, row0)
+    fn = fused_oldest_k.fused_oldest_k_plain if plain else fused_oldest_k.fused_oldest_k
+    return fn(state, timer, alive, 5, row0)
+
+
+@pytest.mark.parametrize("name", ["fp_idv", "fp_hash", "suspicion", "oldest_k"])
+@pytest.mark.parametrize("timer_dtype", [torch.int16, torch.int32])
+def test_kernels_on_row_slices(name, timer_dtype):
+    """K1-K4 (their plain versions, and the wrappers on CPU tensors) on a
+    [B, N] slice with ``row0``: the rows of the whole mesh's result. A
+    slice holding the diagonal's rows is what ``row0`` is for (K3's
+    ``has_cand`` and K4's self-exclusion)."""
+    from kaboodle_tpu_torch.ops.hashing import peer_record_hash
+
+    state, timer, alive, idv = _row_inputs(timer_dtype=timer_dtype)
+    rec = peer_record_hash(torch.arange(ROW_N), idv[0])
+    whole = _kernel_on(name, state, timer, alive, rec if name == "fp_hash" else idv, 0, True)
+    for row0 in range(0, ROW_N, ROW_B):
+        sl = slice(row0, row0 + ROW_B)
+        rows = (state[sl].contiguous(), timer[sl].contiguous(), alive[sl].contiguous(),
+                rec if name == "fp_hash" else idv[sl].contiguous())
+        for plain in (True, False):
+            for w, g in zip(whole, _kernel_on(name, *rows, row0, plain)):
+                assert torch.equal(w[sl], g), (name, row0, plain)
+
+
+def test_kernel_wrappers_refuse_rows_outside_the_mesh():
+    from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k
+    from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion
+
+    state, timer, alive, _ = _row_inputs()
+    sl = slice(0, ROW_B)
+    with pytest.raises(ValueError):
+        fused_suspicion(state[sl], timer[sl], alive[sl], 9, ROW_N - ROW_B + 1)
+    with pytest.raises(ValueError):
+        fused_oldest_k(state[sl], timer[sl], alive[sl], 5, -1)
+    with pytest.raises(ValueError):  # alive must be the rows', not the mesh's
+        fused_suspicion(state[sl], timer[sl], alive, 9, 0)
+
+
+@pytest.mark.parametrize("draw", ["uniform", "uniform_1d", "choose_k", "bernoulli",
+                                  "oldest_k_pick", "drop_gate"])
+@pytest.mark.parametrize("det", [False, True])
+def test_draws_on_row_slices(draw, det):
+    """Each matrix-shaped (and row-indexed) draw of the tick, made for rows
+    ``row0 .. row0 + B`` only, is those rows of the dense draw: the
+    counter of a cell is its place in the whole draw."""
+    from kaboodle_tpu_torch.ops import sampling, threefry
+    from kaboodle_tpu_torch.phasegraph.exec import _drop_gate
+
+    key = threefry.fold_in(threefry.prng_key(1234), 7)
+    g = torch.Generator().manual_seed(3)
+    mask = torch.rand((ROW_N, ROW_N), generator=g) < 0.4
+    prob = torch.rand((ROW_N, ROW_N), generator=g)
+    timer = torch.randint(0, 9, (ROW_N, ROW_N), generator=g, dtype=torch.int32)
+
+    def run(rows, row0):
+        sl = slice(row0, row0 + rows)
+        if draw == "uniform":
+            return (threefry.uniform(key, (rows, ROW_N), CPU, row0),)
+        if draw == "uniform_1d":
+            return (threefry.uniform(key, (rows,), CPU, row0),)
+        if draw == "choose_k":
+            return sampling.choose_k_members(mask[sl], 3, key, det, row0)
+        if draw == "bernoulli":
+            return (sampling.bernoulli_matrix(key, prob[sl], (rows, ROW_N), det, row0),)
+        if draw == "oldest_k_pick":
+            return (sampling.choose_one_of_oldest_k(timer[sl], mask[sl], 5, key, det,
+                                                    row0=row0),)
+        return (_drop_gate(mask[sl], key, torch.tensor(0.3), row0),)
+
+    whole = run(ROW_N, 0)
+    for row0 in range(0, ROW_N, ROW_B):
+        for w, got in zip(whole, run(ROW_B, row0)):
+            assert torch.equal(w[row0:row0 + ROW_B], got), (draw, row0)

@@ -604,3 +604,104 @@ def test_memo_replay_rebuilds_each_leaf_in_its_dtype():
             x = getattr(back, f.name)
             if x is not None:
                 assert x.dtype == getattr(exit_, f.name).dtype and x.device == entry.device
+
+
+# ---------------------------------------------------------------- sharded warp
+# ``mesh=``: 2 gloo ranks (kaboodle_tpu_torch.parallel.worker), 12 of the 24
+# rows each, started once for the module. The worker holds each warped run
+# to the row-sharded dense tick over the same ticks; these tests hold it to
+# the port's one-process runs (held to JAX above).
+
+WARP_RANKS = 2
+
+
+@pytest.fixture(scope="module")
+def sharded_warp(tmp_path_factory):
+    import json as _json
+
+    from kaboodle_tpu_torch.parallel.worker import start_workers
+
+    tmp = tmp_path_factory.mktemp("sharded_warp")
+    inp = churn_inputs()
+    np.savez(tmp / "churn.npz", **{f.name: getattr(inp, f.name).numpy()
+                                   for f in dataclasses.fields(inp)
+                                   if getattr(inp, f.name) is not None})
+    drain_ticks = (horizon.earliest_timer_expiry(drain_state(SwimConfig(**RCFG_KW), victims=(7,)),
+                                                 SwimConfig(**RCFG_KW))
+                   - int(drain_state(SwimConfig(**RCFG_KW), victims=(7,)).tick)) + 24
+    cases = [
+        dict(name="conv_run", kind="warp", n=N, init=dict(seed=5), ticks=64, memo=True),
+        dict(name="drain_run", kind="warp", n=N, init=dict(seed=3), victims=[7], cfg=RCFG_KW,
+             ticks=drain_ticks),
+        dict(name="churn_sim", kind="warp", n=N, init=dict(seed=1), cfg=RCFG_KW, memo=True,
+             inputs=str(tmp / "churn.npz")),
+        dict(name="converge_entry", kind="converge", n=N, max_ticks=16,
+             init=dict(seed=0, ring_contacts=N - 1, announced=True)),
+    ]
+    for c in cases:
+        c["out"] = str(tmp / f"{c['name']}.npz")
+    digests = start_workers(WARP_RANKS, {"device": "cpu", "timeout_s": 60, "cases": cases},
+                            str(tmp / "cases.json"), timeout_s=120).wait()
+    arrays = {}
+    for c in cases:
+        with np.load(c["out"]) as z:
+            arrays[c["name"]] = {k: z[k] for k in z.files}
+    return digests, arrays, drain_ticks, _json
+
+
+def _sharded_state(arrays) -> dict:
+    return {k[len("state."):]: v for k, v in arrays.items() if k.startswith("state.")}
+
+
+def _assert_sharded(want_state, arrays, where):
+    want = {k: v for k, v in state_to_numpy(want_state).items() if v is not None}
+    assert_same(want, _sharded_state(arrays), where)
+
+
+def test_run_warped_sharded_matches_dense(sharded_warp):
+    """The leap on the ranks' rows (row-local scatters, the remote refresh
+    marks gathered) equals the sharded dense trajectory and the port's
+    one-process dense run; a memo pass replays it bit for bit."""
+    digests, arrays, _, _ = sharded_warp
+    for d in digests["conv_run"]:
+        assert d["equal_sharded_dense"] and d["replay_equal"] and d["memo_hits"] > 0
+        assert d["engines"] == ["leap"]
+    _assert_sharded(dense(converged(seed=5), SwimConfig(), 64), arrays["conv_run"], "conv run")
+
+
+def test_run_warped_sharded_drain_crosses_expiry(sharded_warp):
+    """The drain: hybrid spans on the ranks' rows, the expiry season dense;
+    equal to the one-process warped run, span for span."""
+    digests, arrays, ticks, _json = sharded_warp
+    cfg = SwimConfig(**RCFG_KW)
+    st = drain_state(cfg, victims=(7,))
+    led = runner.WarpLedger()
+    want, _, _ = runner.run_warped(st, cfg, ticks, recheck_every=4, ledger=led)
+    _assert_sharded(want, arrays["drain_run"], "sharded drain")
+    for d in digests["drain_run"]:
+        assert d["equal_sharded_dense"] and "hybrid" in d["engines"]
+        assert d["per_class"] == _json.loads(_json.dumps(led.per_class()))
+
+
+def test_simulate_warped_sharded_matches_one_process(sharded_warp):
+    """A schedule of events (its mask OR-reduced over the ranks) through
+    ``simulate_warped(mesh=)``: the same spans as the one-process run, the
+    same final state, a memo replay equal."""
+    digests, arrays, _, _json = sharded_warp
+    cfg = SwimConfig(**RCFG_KW)
+    led = runner.WarpLedger()
+    want, _, _ = runner.simulate_warped(converged(seed=1), churn_inputs(), cfg, recheck_every=4,
+                                        ledger=led)
+    _assert_sharded(want, arrays["churn_sim"], "sharded churn")
+    for d in digests["churn_sim"]:
+        assert d["equal_sharded_dense"] and d["replay_equal"]
+        assert {"leap", "hybrid"} <= set(d["engines"])
+        assert d["per_class"] == _json.loads(_json.dumps(led.per_class()))
+
+
+def test_converge_loop_entry_check_sharded(sharded_warp):
+    """A mesh that agrees at entry: run_until_converged_sharded returns at
+    once, ticks 0, the state untouched."""
+    digests, arrays, _, _ = sharded_warp
+    assert all(d["ticks"] == 0 and d["converged"] for d in digests["converge_entry"])
+    _assert_sharded(converged(seed=0), arrays["converge_entry"], "entry state")
