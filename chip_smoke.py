@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs twenty-nine phases, each printing one JSON line; any failure raises and the
+runs thirty phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -186,7 +186,11 @@ script exits non-zero without the result line:
                drop_rate=0:0.3:4 --max-ticks 32 --telemetry`` (one ``run``
                and four ``sweep_bucket`` records); the ``phasegraph`` dryrun
                at n = 32 and at n = 1,024 with E = 8, every engine bit-exact
-               with the dense tick on the card. Default ``SwimConfig``: no
+               with the dense tick on the card; beside them, each in a fresh
+               process, ``python -m kaboodle_tpu_torch.analysis --ir`` (the
+               KB405 exercise on the card against the committed
+               ``surface.json``) and ``--rng`` (the STREAM_* register), each
+               exit 0. Default ``SwimConfig``: no
                hand kernel runs (the ``use_pallas_*`` flags are off, as in
                the JAX CLI), so the in-process runs count 0 launches.
 
@@ -205,11 +209,24 @@ script exits non-zero without the result line:
                at the end. The ``kernels`` phase also checks K1, K3 and K4
                on ``[N/4, N]`` row slices of an N = 8,192 mesh at row0 =
                N/4, N/2, 3N/4 (bit-exact, timed; cell ``row_slice``).
+30. shard_serve -- (run right after ``sharded``) the sharded serve pool
+               (``serve/shardpool.py``) on the card's one rank, a one-rank
+               NCCL group made in-process: ``ShardedLanePool(1024, 64)`` on
+               a 1-D ``ensemble`` mesh and ``ShardedLanePool(4096, 8)`` on a
+               1 x 1 ``ensemble x peers`` mesh (the row-sharded tick's
+               collectives called on the peer group), each beside a plain
+               ``LanePool`` of its class, both behind a ``ServeEngine``
+               (warp on, ``max_leap`` 256): 16 + 8 (4 + 2 at 4,096)
+               converge boots and steady ticks-mode runs with their leap
+               rounds, and a kept request parked, spilled, restored and
+               resumed. The request results equal, every lane's member
+               bit-equal, nothing built after warmup; warmups, walls and
+               peak memory. The group is destroyed at the end.
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the sharded churn ticks and the sharded boot, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
-the two serve runs, the oracle parity, the serve drivers, the two
+the two serve runs, the sharded serve runs, the oracle parity, the serve drivers, the two
 sparse runs and the in-process command-line runs) and read just after: each kernel of the dense path
 must have launched; the blocked tick, the fleet, the leaps, the serve
 step and the sparse tick run no kernel (as in the JAX package, whose fleet
@@ -2392,6 +2409,155 @@ def phase_serve() -> dict:
     return out
 
 
+def shard_serve_requests(n: int) -> tuple:
+    """One class's mix for ``shard_serve``: converge boots, steady ticks-mode
+    runs of ``serve_ticks(n)`` (each a leap round's worth at ``max_leap``
+    256) and the kept request (a converge boot, parked, spilled, restored,
+    resumed)."""
+    small = n == SERVE_SMALL
+    base = 0 if small else 300
+    reqs = [dict(seed=base + s) for s in range(16 if small else 4)]
+    reqs += [dict(seed=base + 100 + s, mode="ticks", ticks=serve_ticks(n), scenario="steady")
+             for s in range(8 if small else 2)]
+    return reqs, dict(seed=base + 200, keep=True)
+
+
+def shard_serve_run(pool, n: int, tmp: Path) -> dict:
+    """``pool`` behind a ``ServeEngine`` (warp on, ``max_leap`` 256, spill
+    after one idle round): warmup, then under the build counter the class's
+    mix drained, the kept request spilled, restored, resumed for
+    ``SERVE_RESUME_TICKS`` and drained again. Returns the request rows, the
+    rounds by engine, walls, builds and launches."""
+    import torch
+
+    from kaboodle_tpu_torch.analysis.ir.surface import compile_counter
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.serve.engine import ServeEngine, ServeRequest
+
+    (tmp / "spill").mkdir()
+    engine = ServeEngine([pool], warp=True, max_leap=SERVE_MAX_LEAP, spill_after=1,
+                         spill_dir=str(tmp / "spill"), journal_dir=str(tmp / "wal"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    reqs, kept = shard_serve_requests(n)
+    events = []
+    _cuda.reset_launches()
+    with compile_counter() as box:
+        t0 = time.perf_counter()
+        rids = [engine.submit(ServeRequest(n=n, **f)) for f in reqs]
+        krid = engine.submit(ServeRequest(n=n, **kept))
+        events += engine.drain()
+        for _ in range(64):
+            if engine.status(krid)["state"] == "spilled":
+                break
+            events += engine.step()
+        engine.settle_spills()
+        spilled = engine.status(krid)["state"]
+        restored = engine.restore(krid)
+        engine.resume(krid, mode="ticks", ticks=SERVE_RESUME_TICKS)
+        events += engine.drain()
+        engine.settle_spills()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    rows = []
+    for rid in rids + [krid]:
+        row = engine.status(rid)
+        result = {k: v for k, v in (row.get("result") or {}).items() if k != "generation"}
+        rows.append({"state": row["state"], "result": result})
+    rounds: dict = {}
+    for r in events:
+        if r["kind"] == "serve_round":
+            rounds[r["engine"]] = rounds.get(r["engine"], 0) + 1
+    return {"engine": engine, "rows": rows, "rounds": rounds, "warmup_s": warm, "wall_s": wall,
+            "builds": box.count, "launches": launches, "kept_spilled": spilled,
+            "kept_restored": restored}
+
+
+def phase_shard_serve() -> dict:
+    """The sharded serve pool (``serve/shardpool.py``) on the card's one
+    rank: a one-rank NCCL group made here, a 1-D ``ensemble`` mesh for the
+    1,024 x 64 class and a 1 x 1 ``ensemble x peers`` mesh for the 4,096 x
+    8 class (so the row-sharded tick's collectives run on the peer group).
+    Each class's ``ShardedLanePool`` and a plain ``LanePool`` take the same
+    mix through a ``ServeEngine`` (``shard_serve_run``): the request rows
+    equal, every lane's member bit-equal, nothing built after warmup, leap
+    rounds run. The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.fleet.sharding import ENSEMBLE_AXIS, make_fleet_mesh
+    from kaboodle_tpu_torch.parallel.mesh import PEER_AXIS
+    from kaboodle_tpu_torch.serve.pool import LanePool
+    from kaboodle_tpu_torch.serve.shardpool import ShardedLanePool
+
+    release_device_memory()
+    t_phase = time.perf_counter()
+    cfg = SwimConfig(deterministic=True)
+    meshes = {SERVE_SMALL: make_fleet_mesh(),
+              SERVE_LARGE: init_device_mesh("cuda", (1, 1),
+                                            mesh_dim_names=(ENSEMBLE_AXIS, PEER_AXIS))}
+    out = {"phase": "shard_serve", "backend": str(dist.get_backend()),
+           "world": dist.get_world_size(), "classes": {}}
+    launches = {k: 0 for k in counts()}
+    bad = []
+    for n, lanes in zip((SERVE_SMALL, SERVE_LARGE), SERVE_LANES):
+        torch.cuda.reset_peak_memory_stats()
+        res = {}
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            for kind in ("plain", "sharded"):
+                (Path(d) / kind).mkdir()
+                pool = (LanePool(n, lanes, cfg=cfg, chunk=SERVE_CHUNK) if kind == "plain" else
+                        ShardedLanePool(n, lanes, cfg=cfg, chunk=SERVE_CHUNK,
+                                        device_mesh=meshes[n]))
+                res[kind] = shard_serve_run(pool, n, Path(d) / kind)
+                res[kind]["pool"] = pool
+                for k, v in res[kind]["launches"].items():
+                    launches[k] += v
+        plain, sharded = res["plain"]["pool"], res["sharded"]["pool"]
+        diff = {}
+        for lane in range(lanes):
+            d = state_diff(plain.member(lane), sharded.member(lane))
+            if d:
+                diff[lane] = d
+        c = {"lanes": lanes, "mesh": sharded.stats()["device_mesh"],
+             "requests": len(res["plain"]["rows"]),
+             "results_equal": ([r["result"] for r in res["plain"]["rows"]]
+                               == [r["result"] for r in res["sharded"]["rows"]]),
+             "member_mismatches": diff,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        for kind in ("plain", "sharded"):
+            r = res[kind]
+            c[kind] = {k: r[k] for k in ("warmup_s", "wall_s", "builds", "rounds",
+                                         "kept_spilled", "kept_restored")}
+            c[kind]["states"] = [row["state"] for row in r["rows"]]
+            r["engine"].close()
+        out["classes"][str(n)] = c
+        # Every request done but the kept one, parked after its resumed run
+        # (or spilled again, if the engine idled long enough).
+        ok = (c["results_equal"] and not diff and all(
+            c[k]["builds"] == 0 and c[k]["kept_spilled"] == "spilled" and c[k]["kept_restored"]
+            and c[k]["states"][:-1] == ["done"] * (c["requests"] - 1)
+            and c[k]["states"][-1] in ("parked", "spilled")
+            and c[k]["rounds"].get("leap", 0) >= 1 for k in ("plain", "sharded")))
+        if not ok:
+            bad.append(n)
+        del res, plain, sharded
+        release_device_memory()
+    dist.destroy_process_group()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"shard_serve: the sharded pool != the plain pool in {bad}: {out}")
+    return out
+
+
 def phase_serve_parity() -> dict:
     """``serve/dryrun.py::parity_script`` (class 64, 8 lanes, chunk 4, the
     kept request's spill round trip) on the card and on the CPU: status
@@ -3082,13 +3248,21 @@ def phase_cli(device="cuda") -> dict:
     subprocess on the default device against the same run on the CPU, a
     warped churn with its telemetry manifest checked by the summarizer, a
     small sweep with its manifest, and the phasegraph dryrun at two sizes,
-    each engine bit-exact with the dense tick on ``device``."""
+    each engine bit-exact with the dense tick on ``device``; beside them the
+    analysis lanes ``--ir`` (on ``device``) and ``--rng``, each exit 0."""
     from kaboodle_tpu_torch import cli
     from kaboodle_tpu_torch.telemetry.manifest import read_manifest
 
     release_device_memory()
     sim = ["--sim", str(CLI_N), "--ticks", str(CLI_TICKS)]
     dev_args = [] if device == "cuda" else ["--device", device]
+    # The analysis lanes, each a fresh process (the committed surface counts
+    # are a fresh process's), run beside the rest of the phase: KB405 on
+    # ``device`` against the committed budget, and the STREAM_* register.
+    lanes = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "kaboodle_tpu_torch.analysis", *argv], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        for name, argv in (("analysis_ir", ["--ir", *dev_args]), ("analysis_rng", ["--rng"]))}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "kaboodle_tpu_torch", *sim, *dev_args],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -3120,6 +3294,12 @@ def phase_cli(device="cuda") -> dict:
         rc, report, walls[name], runs[f"cli_{name}"] = last_json_line(
             cli.main, ["phasegraph", *argv, *dev_args])
         dryruns[name] = {"rc": rc, "engines": report["engines"], "ok": report["ok"]}
+    analysis = {}
+    for name, (t_start, p) in lanes.items():
+        found, err = p.communicate(timeout=600)
+        analysis[name] = {"rc": p.returncode, "wall_s": time.perf_counter() - t_start,
+                          "summary": err.strip().splitlines()[-1:],
+                          "findings": found.strip().splitlines()}
 
     out = {"phase": "cli", "walls": walls, "wall_s": sum(walls.values()),
            "sim": {"subprocess": sub_line, "cpu": cpu_line, "equal_but_wall": same,
@@ -3134,7 +3314,7 @@ def phase_cli(device="cuda") -> dict:
                     "telemetry_check_rc": rc_check},
            "sweep": {"rc": rc_sweep, "line": sweep_line,
                      "manifest_kinds": sweep_kinds},
-           "phasegraph": dryruns, "launches": runs}
+           "phasegraph": dryruns, "analysis": analysis, "launches": runs}
     emit(out)
     if not (sub_line["final_converged"] and sub_line["n_peers"] == CLI_N and same and rc_cpu == 0):
         raise AssertionError(f"cli: --sim on the card != on the CPU: {sub_line} {cpu_line}")
@@ -3149,6 +3329,8 @@ def phase_cli(device="cuda") -> dict:
     for name, d in dryruns.items():
         if d["rc"] != 0 or not d["ok"] or set(d["engines"]) != CLI_ENGINES:
             raise AssertionError(f"cli: {name} failed: {d}")
+    if any(d["rc"] != 0 for d in analysis.values()):
+        raise AssertionError(f"cli: an analysis lane failed: {analysis}")
     return out
 
 
@@ -3179,6 +3361,7 @@ def main() -> int:
     final, churn_metrics = to_host(final), to_host(churn_metrics)
     tele = phase_telemetry(churn, final, churn_metrics, boot, boot_final)
     shard = phase_sharded(boot, boot_final)
+    shard_serve = phase_shard_serve()
     del boot_final, churn_metrics
     phase_parity()
     facade = phase_facade()
@@ -3220,6 +3403,7 @@ def main() -> int:
             "warp_window_leap": window["launches_leap"],
             **{f"warp_drain_{k}": v for k, v in drain["launches"].items()},
             "warp_fleet": wfleet["launches"], "serve": serve["launches"],
+            "shard_serve": shard_serve["launches"],
             "serve_parity": sparity["launches"], "oracle_parity": oracle["launches"],
             "serve_load": sload["launches"], "fed_serve": fed["launches"],
             "fed_serve_dryrun": fed["dryrun"]["launches"],

@@ -5,11 +5,14 @@ over the port's serve plane (``analysis/conc/rules.py`` on ``core.py``,
 run by ``python -m kaboodle_tpu_torch.analysis --conc``, gated on
 ``analysis/conc/baseline.json``) and the runtime concurrency sanitizer
 (``analysis/conc/sanitizer.py``; the serve engine and spill writer take
-their locks from it) -- and the compile counter of
-``analysis/ir/surface.py`` (here a count of programs built, which the
-serve drivers' zero-rebuild gates read). The lanes that read JAX programs
-(graftlint's AST rules, graftscan, keyscope, costscope) check jit tracing
-and XLA costs and have no counterpart here.
+their locks from it); the compile-surface lane of
+``analysis/ir/surface.py`` (KB405, ``--ir``: a count of programs built,
+which the serve drivers' zero-rebuild gates read too, gated per family on
+``analysis/ir/surface.json``); and the ``STREAM_*`` register of
+``analysis/rng/rules.py`` (KB602's registry half, ``--rng``). What reads
+JAX programs (graftlint's AST rules, graftscan's KB401-KB404, keyscope's
+traced checks, costscope) checks jit tracing and XLA costs and has no
+counterpart here.
 """
 
 from kaboodle_tpu_torch.analysis.core import analyze_source

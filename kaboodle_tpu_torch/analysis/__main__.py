@@ -1,4 +1,4 @@
-"""``python -m kaboodle_tpu_torch.analysis`` -- the graftconc CLI entry point."""
+"""``python -m kaboodle_tpu_torch.analysis`` -- the analysis CLI entry point."""
 
 import sys
 

@@ -232,7 +232,8 @@ def iter_python_files(targets: list[str]) -> list[pathlib.Path]:
 
 def _load_rules() -> None:
     """Import the rule modules (idempotent) so REGISTRY is populated: the
-    port's only lane, the conc rules KB501-KB506."""
+    conc rules KB501-KB506 and the documentation of KB405 and KB601-KB605."""
+    from kaboodle_tpu_torch.analysis import rules_ir, rules_rng  # noqa: F401
     from kaboodle_tpu_torch.analysis.conc import rules as rules_conc  # noqa: F401
 
 

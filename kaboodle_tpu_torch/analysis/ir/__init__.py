@@ -1,1 +1,2 @@
-"""analysis.ir -- the compile counter of the serving path (``surface.py``)."""
+"""analysis.ir -- the compile-surface lane (KB405, ``surface.py``): the
+program-build counter of the serving path and the per-family budget."""

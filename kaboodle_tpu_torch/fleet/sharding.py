@@ -216,18 +216,25 @@ def fleet_vector_sharding(mesh) -> tuple:
     return (Shard(0), Replicate()) if _peers(mesh) else (Shard(0),)
 
 
-def make_sharded_fleet_tick(cfg: SwimConfig, mesh, faulty: bool = True):
+def peer_group_of(mesh):
+    """The row group of a fleet mesh: its ``peers`` sub-group on a 2-D mesh,
+    ``None`` on a 1-D one (each rank holds whole members)."""
+    return mesh.get_group(PEER_AXIS) if _peers(mesh) else None
+
+
+def make_sharded_fleet_tick(cfg: SwimConfig, mesh, faulty: bool = True,
+                            telemetry: bool = False):
     """The fleet tick over this rank's members, its carry checked to stay
     this rank's block: the whole members on a 1-D mesh, the row-sharded
     tick over the peer sub-group on a 2-D one (full program, as the fleet
-    tick is)."""
+    tick is). ``telemetry=True`` is the telemetry build (per-member
+    counters reduced over the peer group)."""
     from kaboodle_tpu_torch.phasegraph.exec import PALLAS_BATCH_ERROR, make_tick_fn
 
     if cfg.use_pallas_fp or cfg.use_pallas_oldest_k or cfg.use_pallas_suspicion:
         raise ValueError(PALLAS_BATCH_ERROR)
-    group = mesh.get_group(PEER_AXIS) if _peers(mesh) else None
     vtick = make_tick_fn(dataclasses.replace(cfg, fast_path=False), faulty=faulty,
-                         program="full", group=group)
+                         program="full", telemetry=telemetry, group=peer_group_of(mesh))
     constrain = make_fleet_constrainer(mesh)
 
     def sharded_tick(st: MeshState, inp: TickInputs):
@@ -271,7 +278,7 @@ def run_fleet_until_converged_sharded(
     rows = fleet.mesh.state.shape[-2]
     idle = fleet_idle_inputs(rows, fleet.ensemble, drop_rate=fleet.drop_rate,
                              device=fleet.mesh.device)
-    peer = mesh.get_group(PEER_AXIS) if _peers(mesh) else None
     new_mesh, conv_tick, done = fleet_converge_loop(fleet.mesh, tick, idle, max_ticks,
-                                                    group=peer, any_group=dist.group.WORLD)
+                                                    group=peer_group_of(mesh),
+                                                    any_group=dist.group.WORLD)
     return dataclasses.replace(fleet, mesh=new_mesh), conv_tick, done

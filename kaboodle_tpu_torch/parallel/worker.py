@@ -373,6 +373,190 @@ def _case_checkpoint(case, mesh, dev) -> dict:
     return {"arrays": arrays, "digest": digest}
 
 
+def _host(x) -> np.ndarray:
+    """A pool's output as numpy (a torch tensor, or any array-like)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# The leap round's cap on a lane's span: the sharded-pool tests' engine
+# ``max_leap`` (tests/test_fedserve.py).
+_SCRIPT_MAX_LEAP = 64
+
+
+def pool_script(pool, ops) -> list:
+    """Run an admission schedule on a lane pool (either package's, sharded
+    or not): ``["admit", lane, seed, until_conv, budget, scenario]``,
+    ``["refused", lane]`` (an admission into an occupied lane, which must
+    raise ``ValueError``), ``["step"]`` and ``["leap"]`` -- one masked
+    fleet leap round with the serve engine's ``k_m`` (each horizon lane's
+    leap budget from the pool's signature rows, capped at
+    ``_SCRIPT_MAX_LEAP``), then its accounting. Returns each leap round's
+    ``k_m``."""
+    from kaboodle_tpu_torch.warp.horizon import decode_signature
+    from kaboodle_tpu_torch.warp.runner import MIN_LEAP, _classify, _leap_budget
+
+    rounds = []
+    for op in ops:
+        if op[0] == "admit":
+            _, lane, seed, conv, budget, scenario = op
+            pool.admit(lane, seed=seed, drop_rate=0.0, until_conv=conv, budget=budget,
+                       scenario=scenario)
+        elif op[0] == "refused":
+            try:
+                pool.admit(op[1], seed=0)
+            except ValueError:
+                continue
+            raise AssertionError(f"an admission into occupied lane {op[1]} was taken")
+        elif op[0] == "step":
+            pool.step()
+        else:
+            rows = _host(pool.signature())
+            k_m = np.zeros((pool.lanes,), dtype=np.int32)
+            horizon = pool.active & ~pool.until_conv & (pool.remaining > 0)
+            for e in np.flatnonzero(horizon):
+                cls = decode_signature(rows[e])
+                mode = _classify(cls, hybrid=True)
+                if mode != "dense":
+                    k_m[e] = min(_leap_budget(cls, mode, int(pool.remaining[e])),
+                                 _SCRIPT_MAX_LEAP)
+            K = max(MIN_LEAP, 1 << int(max(int(k_m.max()), 1) - 1).bit_length())
+            pool.leap(K, k_m)
+            pool.advance_leaped(k_m)
+            rounds.append(k_m.tolist())
+    return rounds
+
+
+def pool_arrays(pool, lanes) -> dict:
+    """A pool's members (``member.<lane>.<field>``, the JAX package's
+    layout), host run vectors, generation counters and counter totals."""
+    out = {}
+    for lane in lanes:
+        m = pool.member(lane)
+        for f in dataclasses.fields(m):
+            x = getattr(m, f.name)
+            if x is not None:
+                out[f"member.{lane}.{f.name}"] = (
+                    state_to_numpy(m)[f.name] if isinstance(x, torch.Tensor) else np.asarray(x))
+    for name in ("ticks_run", "conv_tick", "messages", "remaining"):
+        out[name] = np.asarray(getattr(pool, name))
+    out["generation"] = _host(pool.generation)
+    for name, col in (pool.counter_totals or {}).items():
+        out["counters." + name] = np.asarray(col)
+    return out
+
+
+def _case_shardpool(case, mesh_unused, dev) -> dict:
+    """A ``ShardedLanePool`` over every rank (a 1-D ensemble mesh, or
+    ``peer_devices`` > 1 for the 2-D mesh) driven by :func:`pool_script`
+    on rank 0 while the other ranks follow. Rank 0 writes
+    :func:`pool_arrays` and the leap rounds' ``k_m`` (``fail``: rank 0
+    raises it after the schedule, closing the pool with the error)."""
+    from kaboodle_tpu_torch.fleet.sharding import make_fleet_mesh
+    from kaboodle_tpu_torch.serve.shardpool import ShardedLanePool, follow
+
+    fmesh = make_fleet_mesh(peer_devices=case.get("peer_devices", 1), device=dev.type)
+    pool = ShardedLanePool(case["n"], case["lanes"], cfg=SwimConfig(**case.get("cfg", {})),
+                           chunk=case["chunk"], telemetry=case.get("telemetry", False),
+                           device_mesh=fmesh, timeout_s=60)
+    if dist.get_rank() != 0:
+        return {"digest": {"followed": follow(pool)}}
+    try:
+        rounds = pool_script(pool, case["ops"])
+        if case.get("fail"):
+            raise RuntimeError(case["fail"])
+        arrays = pool_arrays(pool, range(case["lanes"]))
+        arrays["k_m"] = np.asarray(rounds, dtype=np.int32).reshape(len(rounds), -1)
+        stats = pool.stats()
+    except BaseException as e:
+        pool.close(error=repr(e))
+        raise
+    pool.close()
+    return {"arrays": arrays, "digest": {"digest": _digest(arrays),
+                                         "device_mesh": stats["device_mesh"]}}
+
+
+def _case_shardpool_spill(case, mesh_unused, dev) -> dict:
+    """A ``ShardedLanePool`` through a whole ``ServeEngine`` lifecycle on
+    rank 0 (warmup, then under the build counter: submit, drain, park,
+    spill, restore, resume), the other ranks following. Rank 0 also loads
+    each spill file into a single-device pool and holds it equal to the
+    sharded pool's member restored from the same file."""
+    import shutil
+    import tempfile
+
+    from kaboodle_tpu_torch import checkpoint
+    from kaboodle_tpu_torch.analysis.ir.surface import compile_counter
+    from kaboodle_tpu_torch.fleet.sharding import make_fleet_mesh
+    from kaboodle_tpu_torch.serve.engine import ServeEngine, ServeRequest
+    from kaboodle_tpu_torch.serve.pool import LanePool
+    from kaboodle_tpu_torch.serve.shardpool import ShardedLanePool, follow
+
+    n, lanes, chunk = case["n"], case["lanes"], case["chunk"]
+    cfg = SwimConfig(**case.get("cfg", {}))
+    fmesh = make_fleet_mesh(peer_devices=case.get("peer_devices", 1), device=dev.type)
+    pool = ShardedLanePool(n, lanes, cfg=cfg, chunk=chunk, device_mesh=fmesh, timeout_s=60)
+    if dist.get_rank() != 0:
+        return {"digest": {"followed": follow(pool)}}
+    tmp = tempfile.mkdtemp(prefix="kaboodle-shardpool-", dir=case.get("dir"))
+    eng = ServeEngine([pool], max_leap=64, spill_after=1, spill_dir=tmp,
+                      journal_dir=tmp + "/wal", engine_id="e0")
+    try:
+        eng.warmup()
+        restored = {}
+        with compile_counter() as fresh:
+            rids = [eng.submit(ServeRequest(n=n, seed=i, mode="converge" if i % 2 == 0
+                                            else "ticks", ticks=16, keep=True))
+                    for i in range(3)]
+            eng.drain()
+            for _ in range(40):
+                eng.step()
+                if all(eng.status(r)["state"] == "spilled" for r in rids):
+                    break
+            eng.settle_spills()
+            states = [eng.status(r)["state"] for r in rids]
+            paths = [eng.status(r).get("spill_path") for r in rids]
+            for r, path in zip(rids, paths):
+                kept = shutil.copy(path, path + ".kept")  # the resumed run spills again
+                assert eng.restore(r)
+                restored[kept] = state_to_numpy(pool.member(eng.status(r)["lane"]))
+                eng.resume(r, mode="ticks", ticks=4)
+            eng.drain()
+            eng.settle_spills()
+        finals = [eng.status(r)["state"] for r in rids]
+        stats = pool.stats()
+    except BaseException as e:
+        pool.close(error=repr(e))
+        raise
+    eng.close()
+    plain_equal = []
+    for path, want in restored.items():
+        plain = LanePool(n, lanes, cfg=cfg, chunk=chunk, device=dev)
+        plain.insert(0, checkpoint.load(path, device=dev))
+        got = state_to_numpy(plain.member(0))
+        plain_equal.append(all(
+            (got[k] is None and want[k] is None)
+            or np.array_equal(got[k], want[k], equal_nan=got[k].dtype.kind == "f")
+            for k in got))
+    return {"digest": {"fresh": fresh.count, "device_mesh": stats["device_mesh"],
+                       "spilled": states, "final": finals, "plain_equal": plain_equal}}
+
+
+def _case_fedload(case, mesh_unused, dev) -> dict:
+    """``serve/federation/fedload.py``'s ``main`` on every rank (its sharded
+    arm: rank 0 drives, the others follow e0's sharded pool); rank 0's
+    report line."""
+    import contextlib
+    import io
+
+    from kaboodle_tpu_torch.serve.federation import fedload
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fedload.main([*case["argv"], "--device", dev.type])
+    lines = buf.getvalue().strip().splitlines()
+    return {"digest": {"rc": rc, "line": json.loads(lines[-1]) if lines else None}}
+
+
 KINDS = {
     "simulate": _case_simulate,
     "converge": _case_converge,
@@ -383,6 +567,9 @@ KINDS = {
     "fleet_checks": _case_fleet_checks,
     "sweep": _case_sweep,
     "checkpoint": _case_checkpoint,
+    "shardpool": _case_shardpool,
+    "shardpool_spill": _case_shardpool_spill,
+    "fedload": _case_fedload,
 }
 
 

@@ -21,7 +21,8 @@ warp        the span program: k (near-)quiescent ticks as one batched pass
             (``make_warp_leap`` -> span.py)
 serve       the masked fleet converge chunk of a lane pool
             (``make_serve_step``): the fleet tick with per-lane activity,
-            budgets and convergence freezes
+            budgets and convergence freezes; ``make_sharded_serve_step``
+            runs it over a fleet device mesh
 sparse      the blocked_topk ``[N, K]`` tick (``make_sparse_tick`` ->
             sparseplane/kernel.py)
 ==========  ==============================================================
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from kaboodle_tpu_torch.config import SwimConfig
+from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.phasegraph.blocked import make_chunked_tick_fn
 from kaboodle_tpu_torch.phasegraph.exec import (
     PALLAS_BATCH_ERROR,
@@ -183,6 +185,7 @@ def make_serve_step(
     chunk: int,
     faulty: bool = False,
     telemetry: bool = False,
+    device_mesh=None,
 ) -> Callable:
     """The serving engine's resident program: a masked fleet converge chunk.
 
@@ -218,6 +221,11 @@ def make_serve_step(
     Returns ``serve_step(mesh, drop_rate, active, until_conv, remaining,
     ticks_run, conv_tick) -> (mesh, ServeStepOut)``; the vectors are
     tensors or numpy arrays and the outputs tensors on the mesh's device.
+
+    ``device_mesh`` (a ``fleet.sharding.make_fleet_mesh`` mesh) builds the
+    sharded step of :func:`make_sharded_serve_step`: the state and
+    ``drop_rate`` are this rank's block, the run vectors the whole ``[E]``
+    (each rank reads its lanes), and the outputs the whole ``[E]`` again.
     """
     from kaboodle_tpu_torch.fleet.core import fleet_idle_inputs, freeze_members
     from kaboodle_tpu_torch.sim.runner import state_agreement
@@ -225,38 +233,55 @@ def make_serve_step(
 
     if chunk < 1:
         raise ValueError("serve step chunk must be >= 1")
-    vtick = make_fleet_tick(cfg, faulty=faulty, telemetry=telemetry)
+    peer = ens = any_group = None
+    if device_mesh is None:
+        vtick = make_fleet_tick(cfg, faulty=faulty, telemetry=telemetry)
+    else:
+        import torch.distributed as dist
+
+        from kaboodle_tpu_torch.fleet.sharding import (
+            ENSEMBLE_AXIS,
+            make_sharded_fleet_tick,
+            peer_group_of,
+        )
+
+        vtick = make_sharded_fleet_tick(cfg, device_mesh, faulty=faulty, telemetry=telemetry)
+        peer, ens = peer_group_of(device_mesh), device_mesh.get_group(ENSEMBLE_AXIS)
+        any_group = dist.group.WORLD
+    fields = [f.name for f in dataclasses.fields(ProtocolCounters)]
 
     def serve_step(mesh, drop_rate, active, until_conv, remaining, ticks_run, conv_tick):
         dev = mesh.state.device
+        ensemble, rows = mesh.alive.shape[0], mesh.state.shape[-2]
+        lane0 = 0 if ens is None else C.rank(ens) * ensemble  # this rank's first lane
 
         def vec(x, dtype):
             if not isinstance(x, torch.Tensor):
                 x = np.array(x)  # a writable host copy of the [E] vector
-            return torch.as_tensor(x, dtype=dtype).to(dev)
+            x = torch.as_tensor(x, dtype=dtype).to(dev)
+            return x if ens is None else x[lane0:lane0 + ensemble]
 
         active, until_conv = vec(active, torch.bool), vec(until_conv, torch.bool)
         remaining, ticks_run = vec(remaining, torch.int32), vec(ticks_run, torch.int32)
         conv_tick = vec(conv_tick, torch.int32)
-        ensemble, n = active.shape[0], mesh.state.shape[-1]
-        idle = fleet_idle_inputs(n, ensemble, drop_rate=drop_rate, device=dev)
+        idle = fleet_idle_inputs(rows, ensemble, drop_rate=drop_rate, device=dev)
         # Entry test, like the standalone converge loop: a converge-mode
         # lane already at agreement freezes at once with conv_tick ==
         # ticks_run (0 for a freshly admitted converged-init lane).
-        conv0 = state_agreement(mesh)[0]
+        conv0 = state_agreement(mesh, peer)[0]
         conv_tick = torch.where(active & conv0 & (conv_tick < 0), ticks_run, conv_tick)
         done = ~active | (until_conv & conv0) | (remaining <= 0)
         messages = torch.zeros((ensemble,), dtype=torch.int32, device=dev)
         ctr = None
         if telemetry:
             ctr = ProtocolCounters(**{
-                f.name: torch.zeros((ensemble,), dtype=torch.int32, device=dev)
-                for f in dataclasses.fields(ProtocolCounters)
+                name: torch.zeros((ensemble,), dtype=torch.int32, device=dev) for name in fields
             })
         i = 0
-        while i < chunk and bool((~done).any()):
+        # The gate is every lane's, on every rank: each runs the same ticks.
+        while i < chunk and bool(C.global_any(~done, any_group)):
             new, out = vtick(mesh, idle)
-            m = out.metrics if telemetry else out
+            m = out.metrics if telemetry else out  # reduced over the peer group
             adv = ~done
             mesh = freeze_members(adv, mesh, new)
             ticks_run = torch.where(adv, ticks_run + 1, ticks_run)
@@ -264,15 +289,46 @@ def make_serve_step(
             messages = messages + torch.where(adv, m.messages_delivered, 0)
             if telemetry:
                 ctr = add_counters(ctr, ProtocolCounters(**{
-                    f.name: torch.where(adv, getattr(out.counters, f.name), 0)
-                    for f in dataclasses.fields(ProtocolCounters)
+                    name: torch.where(adv, getattr(out.counters, name), 0) for name in fields
                 }))
             conv_now = adv & m.converged
             conv_tick = torch.where(conv_now & (conv_tick < 0), ticks_run, conv_tick)
             done = done | (until_conv & conv_now) | (remaining <= 0)
             i += 1
+        if ens is not None:  # every rank's lanes, in lane order: one gather
+            vecs = [remaining, ticks_run, conv_tick, done.to(torch.int32), messages]
+            if telemetry:
+                vecs += [getattr(ctr, name) for name in fields]
+            vecs = list(C.gather_rows(torch.stack(vecs), ens, dim=-1))
+            remaining, ticks_run, conv_tick, messages = vecs[0], vecs[1], vecs[2], vecs[4]
+            done = vecs[3].to(torch.bool)
+            if telemetry:
+                ctr = ProtocolCounters(**dict(zip(fields, vecs[5:])))
         return mesh, ServeStepOut(remaining=remaining, ticks_run=ticks_run,
                                   conv_tick=conv_tick, done=done, messages=messages,
                                   counters=ctr)
 
     return serve_step
+
+
+def make_sharded_serve_step(
+    cfg: SwimConfig,
+    chunk: int,
+    mesh,
+    faulty: bool = False,
+    telemetry: bool = False,
+) -> Callable:
+    """The serve step over a fleet device mesh (``fleet.sharding.make_fleet_mesh``).
+
+    The sharded twin of :func:`make_serve_step`: the same step, with each
+    rank ticking its lanes through ``fleet.sharding.make_sharded_fleet_tick``
+    (whole members on a 1-D ``ensemble`` mesh; on a 2-D ``E x peers`` mesh
+    each member's rows over the peer group, its metrics and counters
+    reduced there), its carry checked by ``make_fleet_constrainer`` after
+    every tick. The entry agreement is reduced over the peer group, the
+    loop's ``any(~done)`` over every rank, so all ranks run the same ticks
+    and make the same collectives; the ``[E]`` outputs are gathered over
+    the ensemble axis, so every rank holds the same whole run vectors.
+    Every rank calls it with the same whole ``[E]`` run vectors and its
+    own block of the state and of ``drop_rate``."""
+    return make_serve_step(cfg, chunk, faulty=faulty, telemetry=telemetry, device_mesh=mesh)

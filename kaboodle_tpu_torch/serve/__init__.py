@@ -28,19 +28,19 @@ Layers:
                  engines (journal failover, spill adoption) and the
                  two-engine load driver with its kill-one-engine chaos.
 - chaos.py, obsdryrun.py — the fault-injection and observability lanes.
-
-The JAX package's ``shardpool.py`` (the sharded lane pool) is not ported
-yet: it stands on ``parallel/``'s row-sharded tick, but ``torch.distributed``
-is multi-controller, so it needs rank 0 to serve and the other ranks to
-follow its steps (ROADMAP.md).
+- shardpool.py — the sharded lane pool: one pool's lanes (and, on a 2-D
+                 mesh, each lane's rows) over the ranks of a device mesh;
+                 rank 0 serves and the other ranks follow its pool calls.
 """
 
 from kaboodle_tpu_torch.serve.engine import ServeEngine, ServeRequest
 from kaboodle_tpu_torch.serve.pool import LanePool, lane_n_class
+from kaboodle_tpu_torch.serve.shardpool import ShardedLanePool
 
 __all__ = [
     "LanePool",
     "ServeEngine",
     "ServeRequest",
+    "ShardedLanePool",
     "lane_n_class",
 ]

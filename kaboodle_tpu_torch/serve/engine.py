@@ -285,7 +285,8 @@ class ServeEngine:
         return self._spiller
 
     def close(self) -> None:  # conc: event-loop
-        """Join outstanding spill I/O and release the journal handle."""
+        """Join outstanding spill I/O, release the journal handle and close
+        the pools (a sharded pool's followers stop here)."""
         if self._spiller is not None:
             self._spiller.flush()
             self._poll_spills()
@@ -297,6 +298,8 @@ class ServeEngine:
             self.obs.close()
         if self.journal is not None:
             self.journal.close()
+        for pool in self.pools.values():
+            pool.close()
 
     def _log(self, op: str, rid: int, **fields) -> None:
         if self.journal is None:

@@ -25,11 +25,23 @@ front — and drives it three ways, all inside the compile counter
 
     python -m kaboodle_tpu_torch.serve.federation.fedload --dryrun --device cpu
 
-The JAX driver puts a sharded N=32 pool on e0 when its process has 4 or
-more devices. The port has no sharded pool yet, so both engines build
-plain pools and the report says ``"sharded_pool": false``, as the JAX
-driver does with fewer devices; ``--no-shard`` is kept for the same
-command line. The pools run on the card unless ``--device`` names another.
+Engine e0's N=32 pool is a :class:`~kaboodle_tpu_torch.serve.shardpool.
+ShardedLanePool` on a ``world/2 x 2`` device mesh (2 x 2 at 4 ranks) when
+the driver runs as rank 0 of a ``torch.distributed`` job of 4 or more
+ranks (an even number), so the sharded pool serves real federated traffic
+under the same build gate; the other ranks build the same pool and follow
+its calls (``shardpool.follow``). Launched by ``torchrun``::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m kaboodle_tpu_torch.serve.federation.fedload --dryrun --device cpu
+
+The chaos adoption moves a spill file written by the dead engine into the
+survivor, so checkpoints are engine-portable: a spill file holds the same
+bytes whichever pool wrote it. Only ONE engine gets a sharded pool: both
+engines share the event loop thread, which keeps every collective call in
+one order. A single process, or ``--no-shard``, builds plain pools and
+reports ``"sharded_pool": false``. The pools run on the card unless
+``--device`` names another.
 
 ``--dryrun`` is the same machinery at toy sizes with hard asserts.
 """
@@ -55,23 +67,49 @@ def _class_of(i: int, classes=CLASSES) -> int:
     return classes[1] if i % 4 == 3 else classes[0]
 
 
-def _build_engines(scratch: str, lanes: int, chunk: int, device=None):
+def _world() -> int:
+    """Ranks of the ``torch.distributed`` job this process is in (1 with none)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _sharded_pool(lanes: int, chunk: int, device=None):
+    """e0's big class pool over every rank: a ``world/2 x 2`` fleet mesh
+    (each lane's rows split over two ranks). Every rank builds it, in the
+    same order."""
+    from kaboodle_tpu_torch.fleet.sharding import make_fleet_mesh
+    from kaboodle_tpu_torch.serve.shardpool import ShardedLanePool
+
+    world = _world()
+    return ShardedLanePool(CLASSES[1], lanes, chunk=chunk,
+                           device_mesh=make_fleet_mesh(world // 2, 2, device=device))
+
+
+def _build_engines(scratch: str, lanes: int, chunk: int, device=None, shard: bool = True):
     """Two engines on one shared spill/journal root, each with a 16 and a
-    32 pool (plain pools: the port has no sharded pool yet)."""
+    32 pool. e0's 32 pool is sharded when the job has 4 or more ranks
+    (``shard``); e1 is all single-device -- adoption across the two proves
+    the spill format is placement-agnostic."""
     from kaboodle_tpu_torch.serve.engine import ServeEngine
     from kaboodle_tpu_torch.serve.pool import LanePool
 
     spill_root = os.path.join(scratch, "spill")
     journal_root = os.path.join(scratch, "journal")
+    sharded = shard and _world() >= 4
     engines = []
     for eid in ("e0", "e1"):
-        pools = [LanePool(n, lanes, chunk=chunk, device=device) for n in CLASSES]
+        pools = [LanePool(CLASSES[0], lanes, chunk=chunk, device=device)]
+        if eid == "e0" and sharded:
+            pools.append(_sharded_pool(lanes, chunk, device=device))
+        else:
+            pools.append(LanePool(CLASSES[1], lanes, chunk=chunk, device=device))
         engines.append(ServeEngine(
             pools, warp=True, max_leap=64, spill_after=2,
             spill_dir=spill_root, journal_dir=journal_root,
             engine_id=eid,
         ))
-    return engines, spill_root, journal_root
+    return engines, spill_root, journal_root, sharded
 
 
 async def _open_level(client_factory, submit_client, requests: int,
@@ -243,19 +281,28 @@ async def _chaos(client_factory, server_kill, victim: str, n: int = 16,
 
 
 async def _run(args) -> dict:
-    from kaboodle_tpu_torch.analysis.ir.surface import (
-        assert_counter_live,
-        compile_counter,
+    from kaboodle_tpu_torch.analysis.ir.surface import assert_counter_live
+
+    assert_counter_live()
+    scratch = tempfile.mkdtemp(prefix="kaboodle-fed-")
+    engines, spill_root, journal_root, sharded = _build_engines(
+        scratch, args.lanes, args.chunk, device=args.device, shard=not args.no_shard
     )
+    try:
+        return await _serve_and_measure(args, engines, spill_root, journal_root, sharded)
+    except BaseException as e:
+        for eng in engines:  # a sharded pool's followers end with the error
+            for pool in eng.pools.values():
+                pool.close(error=repr(e))
+        raise
+
+
+async def _serve_and_measure(args, engines, spill_root, journal_root, sharded) -> dict:
+    from kaboodle_tpu_torch.analysis.ir.surface import compile_counter
     from kaboodle_tpu_torch.serve.client import ServeClient
     from kaboodle_tpu_torch.serve.federation.router import EngineMember, FedRouter
     from kaboodle_tpu_torch.serve.server import ServeServer
 
-    assert_counter_live()
-    scratch = tempfile.mkdtemp(prefix="kaboodle-fed-")
-    engines, spill_root, journal_root = _build_engines(
-        scratch, args.lanes, args.chunk, device=args.device
-    )
     t0 = time.perf_counter()
     for eng in engines:
         eng.warmup()
@@ -318,7 +365,7 @@ async def _run(args) -> dict:
     return {
         "bench": "fedserve",
         "members": len(engines),
-        "sharded_pool": False,
+        "sharded_pool": sharded,
         "lanes": args.lanes,
         "chunk": args.chunk,
         "base_rate_rps": args.base_rate,
@@ -356,9 +403,8 @@ def parse_args(argv=None):
     parser.add_argument("--level-seconds", type=float, default=1.0,
                         help="minimum offered-schedule length per level")
     parser.add_argument("--no-shard", action="store_true",
-                        help="plain pools everywhere (the port builds "
-                             "plain pools either way: it has no sharded "
-                             "pool yet)")
+                        help="plain pools everywhere (skip the sharded "
+                             "pool of a job of 4 or more ranks)")
     parser.add_argument("--device", default=None,
                         help="torch device of the pools (default: the card; "
                              "'cpu' runs the plain path on the host)")
@@ -376,10 +422,36 @@ def parse_args(argv=None):
     return args
 
 
+def _join_job(args) -> int:
+    """Join the ``torch.distributed`` job ``torchrun`` describes (its
+    environment), if any; returns the world size."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from kaboodle_tpu_torch.parallel.mesh import make_mesh
+
+        make_mesh(device=args.device)
+    world = _world()
+    if not args.no_shard and world >= 4 and world % 2:
+        raise ValueError(f"the sharded pool's world/2 x 2 mesh needs an even world, not {world}")
+    return world
+
+
 def main(argv=None) -> int:
     """``python -m kaboodle_tpu_torch.serve.federation.fedload`` —
-    federated load + chaos."""
+    federated load + chaos (rank 0 drives; the other ranks of a sharded
+    job follow e0's sharded pool)."""
+    import torch.distributed as dist
+
     args = parse_args(argv)
+    if _join_job(args) > 1 and dist.get_rank() != 0:
+        if args.no_shard or _world() < 4:
+            return 0  # nothing to follow: rank 0 runs plain pools
+        from kaboodle_tpu_torch.serve.shardpool import follow
+
+        calls = follow(_sharded_pool(args.lanes, args.chunk, device=args.device))
+        print(json.dumps({"fedload_follower": dist.get_rank(), "calls": calls}))
+        return 0
     report = asyncio.run(_run(args))
     if args.dryrun:
         assert report["compiles_steady"] == 0, report["compiles_steady"]

@@ -181,16 +181,18 @@ _PROGRAM_CACHES = (_step_program, _reseed_program, _insert_program, _agree_progr
 
 def program_builds() -> int:
     """Programs the serving path has built in this process: misses of the
-    pool's program caches, of the warp ``leap_cache`` and of the sparse
+    pool's program caches (the sharded pool's too), of the warp
+    ``leap_cache`` and of the sparse
     tick cache (``sparseplane/runner.py``), plus the CUDA kernel libraries
     ``ops/_cuda.py`` has built or loaded. The port's
     counterpart of the JAX package's XLA compile count (the serve plane's
     ``compiles_steady`` gauge is this number's growth after warmup)."""
     from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.serve import shardpool
     from kaboodle_tpu_torch.sparseplane.runner import sparse_tick_program
     from kaboodle_tpu_torch.warp.runner import leap_cache
 
-    return (sum(c.cache_info().misses for c in _PROGRAM_CACHES)
+    return (sum(c.cache_info().misses for c in _PROGRAM_CACHES + shardpool.PROGRAM_CACHES)
             + leap_cache.misses + sparse_tick_program.cache_info().misses
             + len(_cuda._libs))
 
@@ -522,6 +524,11 @@ class LanePool:
             self.mesh, self.generation, 0, member0
         )
         self.agreement()
+
+    def close(self, error: str | None = None) -> None:
+        """Release what the pool holds besides its tensors (``ServeEngine.close``
+        calls it; ``error`` says why a failing caller closes): nothing, for
+        a single-device pool."""
 
     def stats(self) -> dict:
         return {

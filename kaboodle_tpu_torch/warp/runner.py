@@ -123,6 +123,11 @@ class ProgramCache:
         self._programs[key] = prog
         return prog
 
+    def clear(self) -> None:
+        """Drop every program (the hit and miss counts keep counting, so
+        ``serve.pool.program_builds`` only grows)."""
+        self._programs.clear()
+
     def stats(self) -> dict:
         families = collections.Counter(repr((family, kind)) for family, kind, _ in self._programs)
         per_kind = {

@@ -425,6 +425,10 @@ def test_package_imports_without_jax_or_reference_package():
                    "kaboodle_tpu_torch.parallel.mesh", "kaboodle_tpu_torch.parallel.worker",
                    "kaboodle_tpu_torch.fleet.sharding"}
         assert slice12 <= set(names), slice12 - set(names)
+        slice13 = {"kaboodle_tpu_torch.serve.shardpool", "kaboodle_tpu_torch.analysis.rng",
+                   "kaboodle_tpu_torch.analysis.rng.rules", "kaboodle_tpu_torch.analysis.rules_rng",
+                   "kaboodle_tpu_torch.analysis.rules_ir"}
+        assert slice13 <= set(names), slice13 - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
