@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs thirty phases, each printing one JSON line; any failure raises and the
+runs thirty-one phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -222,12 +222,30 @@ script exits non-zero without the result line:
                resumed. The request results equal, every lane's member
                bit-equal, nothing built after warmup; warmups, walls and
                peak memory. The group is destroyed at the end.
+31. costscope -- (run right after ``cli``) the port's cost observatory
+               (``kaboodle_tpu_torch/costscope/``) on the card: every entry
+               of the registry (``analysis/ir/registry.py``: the dense,
+               fused, lean, random, blocked, sparse and telemetry ticks,
+               the recorder, the leaps, the fleet tick, the serve step,
+               reseed and leap, the sharded twins and the ``ops.*``
+               kernels, N = 16 to 128) run on the card and on the CPU, its
+               outputs bit-equal, and every one-device entry's static
+               record (flops, bytes accessed, argument, output and peak
+               bytes of ``costscope/extract.py``'s dispatch counter) equal
+               on both devices; the four sharded entries on a one-rank
+               NCCL group made here, against a one-rank gloo job on the
+               CPU. K1-K4 must launch. Then ``costscope --icibench`` at
+               world 1 over NCCL for N = 2^10 .. 2^16 (its walls; nothing
+               crosses a link, so the ring bytes are 0) and ``costscope
+               --report`` with the ``churn`` phase's wall as its one
+               ``--walls`` line (the ``tick.faulty`` placement).
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the sharded churn ticks and the sharded boot, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
 the two serve runs, the sharded serve runs, the oracle parity, the serve drivers, the two
-sparse runs and the in-process command-line runs) and read just after: each kernel of the dense path
+sparse runs, the in-process command-line runs and the costscope entries' card runs) and read
+just after: each kernel of the dense path
 must have launched; the blocked tick, the fleet, the leaps, the serve
 step and the sparse tick run no kernel (as in the JAX package, whose fleet
 refuses the Pallas flags and whose leap and sparse tick have no Pallas
@@ -3334,6 +3352,132 @@ def phase_cli(device="cuda") -> dict:
     return out
 
 
+# The record fields the card must give exactly as the CPU does.
+COSTSCOPE_FIELDS = ("bytes_accessed", "argument_bytes", "output_bytes", "peak_bytes", "flops")
+
+
+def arrays_diff(got: dict, want: dict) -> list[str]:
+    """The leaves of two ``registry.output_arrays`` dicts that differ (dtype,
+    shape or any byte)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        g, w = got[k], want[k]
+        if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+            bad.append(k)
+    return bad
+
+
+def phase_costscope(churn=None, device="cuda") -> dict:
+    """costscope on the card (phase 31): every entry of the registry
+    (``analysis/ir/registry.py``) run on the card, its outputs bit-equal to
+    the same entry on the CPU, and every one-device entry's static record
+    (``costscope/extract.py``'s counter) equal in the card and CPU runs; the
+    four sharded entries on a one-rank NCCL group made here, against a
+    one-rank gloo job on the CPU started beside the card work; K1-K4 must
+    launch. Then ``costscope --icibench`` at world 1 over NCCL (its walls;
+    at one rank nothing crosses a link), and ``costscope --report`` with
+    the ``churn`` phase's wall as its one ``--walls`` line (``churn``: that
+    phase's result; run here when not given)."""
+    import concurrent.futures
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from kaboodle_tpu_torch.analysis.ir.registry import ENTRY_POINTS, output_arrays
+    from kaboodle_tpu_torch.costscope import cli as cs_cli
+    from kaboodle_tpu_torch.costscope.extract import measure, run_sharded
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.parallel import make_mesh
+
+    if churn is None:
+        churn = phase_churn()[0]
+    release_device_memory()
+    t_phase = time.perf_counter()
+    card = card_line()
+    sharded = [e.name for e in ENTRY_POINTS if e.sharded]
+    entries, bad = {}, []
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        ref_path = str(Path(tmp) / "sharded_cpu.npz")
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            ref_job = pool.submit(run_sharded, sharded, 1, ref_path)
+            _cuda.reset_launches()
+            for e in (e for e in ENTRY_POINTS if not e.sharded):
+                rec, (_, out), ops = measure(e, device)
+                ref, (_, ref_out), ref_ops = measure(e, "cpu")
+                diff = arrays_diff(output_arrays(out), output_arrays(ref_out))
+                fields = {f: [rec[f], ref[f]] for f in COSTSCOPE_FIELDS if rec[f] != ref[f]}
+                row = {"flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+                       "peak_bytes": rec["peak_bytes"], "outputs_equal": not diff,
+                       "record_equal": not fields}
+                if diff or fields:
+                    row.update(outputs_differ=diff, fields_differ=fields, ops_differ={
+                        op: [ops.get(op), ref_ops.get(op)] for op in sorted(set(ops) | set(ref_ops))
+                        if ops.get(op) != ref_ops.get(op)})
+                    bad.append(e.name)
+                entries[e.name] = row
+            mesh = make_mesh(device=device)
+            card_sharded = {}
+            for name in sharded:
+                (e,) = [x for x in ENTRY_POINTS if x.name == name]
+                rec, (_, out), _ = measure(e, device)
+                card_sharded[name] = (rec, output_arrays(out))
+            launches = counts()
+            ref_records = ref_job.result()
+        with np.load(ref_path) as z:
+            for name, (rec, arrays) in card_sharded.items():
+                ref = {k.split("|", 1)[1]: z[k] for k in z.files if k.startswith(name + "|")}
+                diff = arrays_diff(arrays, ref)
+                entries[name] = {"flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+                                 "peak_bytes": rec["peak_bytes"], "ici_bytes": rec["ici_bytes"],
+                                 "collectives": rec["collectives"], "outputs_equal": not diff,
+                                 "cpu_gloo_ici_bytes": ref_records[name]["ici_bytes"]}
+                if diff:
+                    entries[name]["outputs_differ"] = diff
+                    bad.append(name)
+        t_entries = time.perf_counter() - t_phase
+
+        buf = io.StringIO()
+        ici_path = str(Path(tmp) / "ici.json")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_ici = cs_cli.main(["--icibench", "--json", ici_path,
+                                  *([] if device == "cuda" else ["--device", device])])
+        t_ici = time.perf_counter() - t0
+        ici = json.loads(Path(ici_path).read_text())
+        ici_text = buf.getvalue().strip().splitlines()
+        dist.destroy_process_group()
+        del mesh
+
+        walls_path, rep_path = str(Path(tmp) / "walls.jsonl"), str(Path(tmp) / "report.json")
+        Path(walls_path).write_text(json.dumps({
+            "n_peers": churn["n"], "ticks": churn["ticks"], "wall_s": churn["wall_s"],
+            "backend": card, "source": "chip_smoke.py churn"}) + "\n")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_report = cs_cli.main(["--report", "--walls", walls_path, "--json", rep_path])
+        placements = json.loads(Path(rep_path).read_text())["placements"]
+
+    out = {"phase": "costscope", "card": card, "entries": entries, "launches": launches,
+           "entries_s": t_entries, "icibench_s": t_ici, "icibench": {
+               "rc": rc_ici, "backend": ici["backend"], "ranks": ici["n_devices"],
+               "walls_s": {f"{r['collective']}@{r['n']}": r["wall_s_best"]
+                           for r in ici["results"]},
+               "ici_bytes_ring": sum(r["ici_bytes_ring"] for r in ici["results"]),
+               "text": ici_text},
+           "report": {"rc": rc_report, "placements": placements},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if bad:
+        raise AssertionError(f"costscope: entries differ between the card and the CPU: {bad}")
+    require_launches("costscope", launches, _cuda.KERNELS)
+    if rc_ici != 0 or ici["n_devices"] != 1 or out["icibench"]["ici_bytes_ring"] != 0:
+        raise AssertionError(f"costscope: --icibench at world 1 failed: {out['icibench']}")
+    if rc_report != 0 or [p["entry"] for p in placements] != ["phasegraph.tick.faulty"]:
+        raise AssertionError(f"costscope: --report failed: {out['report']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3386,6 +3530,7 @@ def main() -> int:
     sparse_par = phase_sparse_parity()
     sparse_boot = phase_sparse_boot()
     cli_out = phase_cli()
+    cs = phase_costscope(churn)
     # The blocked tick, the fleet, the leaps, the serve step and the sparse
     # tick run no kernel (as in the JAX package), nor does the command line
     # at its default config (no kernel flag, as in the JAX CLI): their runs
@@ -3409,7 +3554,7 @@ def main() -> int:
             "fed_serve_dryrun": fed["dryrun"]["launches"],
             "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"],
             "sparse_parity": sparse_par["launches"], "sparse_boot": sparse_boot["launches"],
-            **cli_out["launches"]}
+            **cli_out["launches"], "costscope": cs["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

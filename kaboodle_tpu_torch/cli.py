@@ -24,9 +24,7 @@ their modules' own parsers::
     python -m kaboodle_tpu_torch fleet --sweep drop_rate=0:0.3:16 --ensemble 1024
     python -m kaboodle_tpu_torch telemetry M.jsonl --check
     python -m kaboodle_tpu_torch serve | serve-load | fed-load | sparse | phasegraph
-
-``costscope`` reads XLA HLO and TPU ICI costs; it has no counterpart on
-the card and exits 2.
+    python -m kaboodle_tpu_torch costscope [--report | --icibench --dryrun]
 """
 
 from __future__ import annotations
@@ -37,12 +35,6 @@ import sys
 import time
 
 from kaboodle_tpu_torch.errors import KaboodleError, NoAvailableInterfaces
-
-COSTSCOPE_MESSAGE = (
-    "costscope reads XLA HLO and TPU ICI costs; it has no counterpart on the "
-    "card (use scripts/torch_tick_profile.py for device time)"
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -475,14 +467,12 @@ SUBCOMMANDS = {
     "fed-load": "kaboodle_tpu_torch.serve.federation.fedload",  # two engines + the router
     "sparse": "kaboodle_tpu_torch.sparseplane.dryrun",  # blocked-sparse engine dryrun
     "phasegraph": "kaboodle_tpu_torch.phasegraph.dryrun",  # every engine vs the dense tick
+    "costscope": "kaboodle_tpu_torch.costscope.cli",  # cost records, gate, roofline, microbench
 }
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "costscope":
-        print(COSTSCOPE_MESSAGE, file=sys.stderr)
-        return 2
     if argv and argv[0] in SUBCOMMANDS:
         import importlib
 

@@ -9,12 +9,15 @@ never served by a stale library. A build that fails raises with nvcc's
 output; nothing falls back to a plain version.
 
 ``launches`` counts the launches of each kernel since ``reset_launches``:
-a wrapper adds one exactly where it launches its kernel.
+a wrapper adds one exactly where it launches its kernel. ``cost_unit``
+makes a wrapper one unit of an open costscope counter
+(``costscope/extract.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,6 +45,33 @@ build_logs: dict[str, str] = {}
 def reset_launches() -> None:
     for k in KERNELS:
         launches[k] = 0
+
+
+# The costscope counter that is open in this process, or None.
+counter = None
+
+
+def cost_unit(flops):
+    """Decorator: the wrapper is one unit of an open costscope counter.
+
+    The unit counts the wrapper's tensor arguments and outputs and
+    ``flops(*args, **kwargs)`` operations, and nothing that runs inside it
+    (the kernel launch, or on the CPU its plain version), so a record is
+    the same on either device. With no counter open the wrapper runs as
+    it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def unit(*args, **kwargs):
+            if counter is None:
+                return fn(*args, **kwargs)
+            return counter.unit(fn, args, kwargs, int(flops(*args, **kwargs)))
+        return unit
+    return wrap
+
+
+def cell_flops(state, *args, **kwargs) -> int:
+    """A kernel's operations for costscope: one a cell of the plane it scans."""
+    return state.numel()
 
 
 def nvcc_path() -> str:

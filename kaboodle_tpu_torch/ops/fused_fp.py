@@ -47,6 +47,7 @@ def fused_fp_count_plain(state: torch.Tensor, identity: torch.Tensor):
     return fp, member.sum(dim=-1, dtype=torch.int32)
 
 
+@_cuda.cost_unit(_cuda.cell_flops)
 def fused_fp_count(state: torch.Tensor, identity: torch.Tensor):
     """Row fingerprints + membership counts of ``state`` in one pass.
 

@@ -53,6 +53,7 @@ def fused_oldest_k_plain(state, timer, alive, k: int, row0: int = 0):
     return torch.stack(out_i, dim=-1).to(torch.int32), torch.stack(out_v, dim=-1)
 
 
+@_cuda.cost_unit(_cuda.cell_flops)
 def fused_oldest_k(state: torch.Tensor, timer: torch.Tensor, alive: torch.Tensor, k: int,
                    row0: int = 0):
     """The k oldest eligible candidates per row (see the module docstring).

@@ -52,6 +52,7 @@ def fused_suspicion_plain(state, timer, alive, thr: int, row0: int = 0):
     return count, jstar, has_timed, has_cand, wfip
 
 
+@_cuda.cost_unit(_cuda.cell_flops)
 def fused_suspicion(state: torch.Tensor, timer: torch.Tensor, alive: torch.Tensor, thr: int,
                     row0: int = 0):
     """Phase-A row stats of ``(state, timer)`` in one pass.

@@ -32,9 +32,17 @@ whatever the group's size: a one-rank group still calls every collective
 Every rank must reach the same helpers in the same order: a helper inside
 a branch that only some ranks take leaves the others waiting. The tick's
 gates are all :func:`global_any` for that reason.
+
+Every ``dist`` call of this module goes through :func:`_note` first: inside
+:func:`record_collectives` each call is logged under HLO's name for its
+kind (``all-gather``, ``all-reduce``, ``all-to-all``, and
+``collective-permute`` for a ring step), with the bytes it carries on the
+wire, for ``costscope/collectives.py``. Outside it nothing is logged.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -69,6 +77,36 @@ _WIRE_DTYPES = (torch.uint8, torch.int8, torch.int32, torch.int64, torch.float32
                 torch.float64)
 
 
+# The open logs of record_collectives (innermost last).
+_logs: list[list] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Log every collective this module makes while open: yields a list
+    that gets one dict a call, ``{"kind", "group_size", "result_bytes",
+    "sent_bytes"}`` (``sent_bytes``: the bytes of the send splits that go
+    to other ranks, for the two all-to-all kinds; None for the others)."""
+    log: list = []
+    _logs.append(log)
+    try:
+        yield log
+    finally:
+        _logs.remove(log)
+
+
+def _note(kind: str, group, result_bytes: int, sent_bytes: int | None = None) -> None:
+    if _logs:
+        row = {"kind": kind, "group_size": size(group), "result_bytes": int(result_bytes),
+               "sent_bytes": None if sent_bytes is None else int(sent_bytes)}
+        for log in _logs:
+            log.append(row)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _wire(x: torch.Tensor) -> torch.Tensor:
     """A tensor a collective carries, contiguous: bool and int16 as their
     bytes (uint8; an int16 row's last dim doubles, each value's two bytes
@@ -87,6 +125,7 @@ def gather_rows(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
         return x
     w = _wire(x)
     parts = [torch.empty_like(w) for _ in range(size(group))]
+    _note("all-gather", group, _nbytes(w) * len(parts))
     dist.all_gather(parts, w, group=group)
     return _unwire(torch.cat(parts, dim=dim), x.dtype)
 
@@ -116,6 +155,7 @@ def gather_many(xs, group, nb: int = 0) -> list[torch.Tensor]:
 
 def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     w = _wire(x.clone())
+    _note("all-reduce", group, _nbytes(w))
     dist.all_reduce(w, op=op, group=group)
     return _unwire(w, x.dtype)
 
@@ -191,6 +231,7 @@ def transpose(plane: torch.Tensor, group) -> torch.Tensor:
     w = _wire(plane)
     send = w.view(*batch, b, r, b).movedim(-2, 0).contiguous()  # [R, *batch, B, B]
     recv = torch.empty_like(send)
+    _note("all-to-all", group, _nbytes(send), _nbytes(send) - _nbytes(send[rank(group)]))
     dist.all_to_all_single(recv, send, group=group)
     # recv[i][.., a, c] = M[row0_i + a, row0_r + c] = M^T[row0_r + c, row0_i + a]
     out = recv.movedim(0, -2).transpose(-1, -3)  # [*batch, c, i, a]
@@ -215,6 +256,7 @@ def ring(block: torch.Tensor, group):
             rows = cur.shape[0]
             send_split = [rows if j == (me + 1) % r else 0 for j in range(r)]
             recv_split = [rows if j == (me - 1) % r else 0 for j in range(r)]
+            _note("collective-permute", group, _nbytes(cur), _nbytes(cur))
             dist.all_to_all_single(nxt, cur, recv_split, send_split, group=group)
             cur = nxt
 

@@ -557,6 +557,27 @@ def _case_fedload(case, mesh_unused, dev) -> dict:
     return {"digest": {"rc": rc, "line": json.loads(lines[-1]) if lines else None}}
 
 
+def _case_costscope(case, mesh_unused, dev) -> dict:
+    """``costscope``: the static records of registry entries (the sharded
+    ones over every rank), each rank's own; with ``out``, rank 0 also
+    writes every entry's whole outputs (keys ``<entry>|<path>``). With
+    ``icibench`` (a list of sizes) it runs ``costscope/icibench.py``'s sweep
+    over every rank instead."""
+    from kaboodle_tpu_torch.analysis.ir.registry import output_arrays, select_entries
+    from kaboodle_tpu_torch.costscope.extract import measure
+
+    if case.get("icibench"):
+        from kaboodle_tpu_torch.costscope.icibench import run_sweep
+
+        return {"digest": {"report": run_sweep(tuple(case["icibench"]), dist.group.WORLD,
+                                               repeats=1, check=True)}}
+    records, arrays = {}, {}
+    for entry in select_entries(case["entries"]):
+        records[entry.name], (_, whole), _ = measure(entry, dev)
+        arrays.update({f"{entry.name}|{k}": v for k, v in output_arrays(whole).items()})
+    return {"arrays": arrays, "digest": {"records": records}}
+
+
 KINDS = {
     "simulate": _case_simulate,
     "converge": _case_converge,
@@ -570,6 +591,7 @@ KINDS = {
     "shardpool": _case_shardpool,
     "shardpool_spill": _case_shardpool_spill,
     "fedload": _case_fedload,
+    "costscope": _case_costscope,
 }
 
 

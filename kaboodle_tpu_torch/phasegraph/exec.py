@@ -79,7 +79,7 @@ from typing import Callable
 import torch
 
 from kaboodle_tpu_torch.config import SwimConfig
-from kaboodle_tpu_torch.ops import threefry
+from kaboodle_tpu_torch.ops import _cuda, threefry
 from kaboodle_tpu_torch.ops.fused_fp import fused_fp_count, fused_fp_count_plain
 from kaboodle_tpu_torch.ops.fused_oldest_k import fused_oldest_k
 from kaboodle_tpu_torch.ops.fused_suspicion import fused_suspicion
@@ -116,6 +116,11 @@ def dispatch_pred_terms(cfg: SwimConfig) -> tuple[str, ...]:
     return ("any_a2", "any_join") if cfg.join_broadcast_enabled else ("any_a2",)
 
 
+def _matmul_flops(a: torch.Tensor, b: torch.Tensor) -> int:
+    return 2 * a.numel() * b.shape[-1]
+
+
+@_cuda.cost_unit(_matmul_flops)
 def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Boolean OR-matmul ``(a @ b) > 0`` with an int32 accumulator.
 

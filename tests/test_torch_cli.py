@@ -279,6 +279,7 @@ def test_warp_mode_and_hybrid_flags_reach_simulate_warped():
     ("fed-load", "kaboodle_tpu_torch.serve.federation.fedload"),
     ("sparse", "kaboodle_tpu_torch.sparseplane.dryrun"),
     ("phasegraph", "kaboodle_tpu_torch.phasegraph.dryrun"),
+    ("costscope", "kaboodle_tpu_torch.costscope.cli"),
 ])
 def test_every_subcommand_dispatches(monkeypatch, sub, module):
     import importlib
@@ -290,10 +291,21 @@ def test_every_subcommand_dispatches(monkeypatch, sub, module):
     assert seen == [["--x", "y"]]
 
 
-def test_costscope_has_no_counterpart(capsys):
-    assert main(["costscope", "--help"]) == 2
-    err = capsys.readouterr().err
-    assert "costscope" in err and "no counterpart" in err and len(err.strip().splitlines()) == 1
+def test_costscope_has_no_counterpart(capsys, monkeypatch):
+    """``costscope`` once exited 2 here for want of a counterpart; it now
+    reaches the port's costscope CLI: ``--help`` exits 0 with its flags,
+    and ``--icibench`` with no card and no ``--device`` raises (no CPU
+    fallback)."""
+    with pytest.raises(SystemExit) as e:
+        main(["costscope", "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    for flag in ("--entry", "--write-baseline", "--no-baseline-growth", "--report", "--walls",
+                 "--icibench", "--dryrun", "--repeats", "--device", "--manifest"):
+        assert flag in out, flag
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["costscope", "--icibench"])
 
 
 def test_subcommands_run_through_the_cli(tmp_path):
