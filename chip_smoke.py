@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs thirty-one phases, each printing one JSON line; any failure raises and the
+runs thirty-two phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -19,7 +19,8 @@ script exits non-zero without the result line:
                beside its bound, its plain version and its launch floor (an
                empty kernel at the same grid and block); K4 also beside
                ``torch.topk`` over a prebuilt key plane (a selection
-               yardstick, not the same function).
+               yardstick, not the same function). The costscope entries'
+               shapes (N = 32 ticks, N = 128 ``ops.*``) are timed too.
 3. boot     -- fault-free broadcast boot to convergence at N = 16,384, lean
                state, int16 timers, all three kernel flags on, random mode.
 4. churn    -- BASELINE config 3: N = 8,192, 64 ticks, 5 %/tick churn over
@@ -28,6 +29,21 @@ script exits non-zero without the result line:
 5. kernels_churn_state -- K4 on the churn run's final state, timer and
                alive planes (realistic timers: few distinct values, long
                runs of ties), bit-exact for k = 1, 5, 9, timed at k = 5.
+32. stage_cuts -- (run right after ``kernels_churn_state``) the dense
+               tick's stage probe, ``make_tick_fn(cfg, _cut=label)`` for
+               each label of ``tick.graph.cut_labels`` (``A``, ``c1``,
+               ``c2``, ``c34``, ``G``) and the uncut full program: at N =
+               1,024 (full state, all kernel flags, random mode; peer 5 cut
+               off by a partition for two ticks, then healed with peer 9
+               killed, so suspicion escalates and calls 3-4 deliver) one
+               tick on the card and one on the CPU per cut, every leaf
+               equal (``latency`` as ``parity`` compares it); then at
+               config 3's width, from the churn run's final state under the
+               churn schedule's tick-16 inputs, one warm-up and the median
+               of 3 ticks per cut by CUDA events: each cut's ms, the
+               successive differences (each stage's in-context cost) and
+               the K1/K3/K4 launches of one tick under each cut. The ``G``
+               cut must launch K1, K3 and K4.
 6. telemetry -- the telemetry build: ``simulate_with_telemetry`` over the
                churn run's inputs (recorder of 32 ticks), its final state and
                per-tick metrics bit-equal to the churn's; then
@@ -244,7 +260,8 @@ Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the sharded churn ticks and the sharded boot, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
 the two serve runs, the sharded serve runs, the oracle parity, the serve drivers, the two
-sparse runs, the in-process command-line runs and the costscope entries' card runs) and read
+sparse runs, the in-process command-line runs, the costscope entries' card runs and the
+stage cuts' timed ticks) and read
 just after: each kernel of the dense path
 must have launched; the blocked tick, the fleet, the leaps, the serve
 step and the sparse tick run no kernel (as in the JAX package, whose fleet
@@ -556,6 +573,15 @@ def phase_kernels() -> dict:
     plan += [("fused_fp_idv", 1024, i32, 0, "warp_drain"),
              ("fused_suspicion", 1024, i32, 0, "warp_drain")]
     plan += [("fused_oldest_k", 1024, i32, k, "warp_drain" if k == 5 else None) for k in (1, 5, 9)]
+    # The costscope entries' shapes: the N = 32 ticks (full state, int32
+    # timers; the lean ones hash, int16; deterministic, so K4 at k = 1) and
+    # the N = 128 ``ops.*`` entries (int32 timers, K4 at k = 5).
+    plan += [("fused_fp_idv", 32, i32, 0, "costscope"), ("fused_fp_hash", 32, i16, 0, "costscope"),
+             ("fused_fp_hash", 128, i32, 0, "costscope"),
+             ("fused_suspicion", 32, i32, 0, "costscope"),
+             ("fused_suspicion", 128, i32, 0, "costscope"),
+             ("fused_oldest_k", 32, i32, 1, "costscope"),
+             ("fused_oldest_k", 128, i32, 5, "costscope")]
     cases, rows = [], []
     for name, n, dt, k, timed in plan:
         state, timer, alive, idv = kernel_inputs(n, dt, gen)
@@ -602,6 +628,164 @@ def phase_kernels_churn_state(final) -> dict:
     emit({"phase": "kernels_churn_state", "tolerance": "bit-exact", "cases": cases,
           "timed": rows, "distinct_timers": int(torch.unique(timer).numel())})
     return {"rows": rows, "cases": cases}
+
+
+# ---------------------------------------------------------------- stage cuts
+
+CUT_PARITY_N = 1024
+# The churn schedule's tick whose inputs (5 % kills and revives) drive the
+# timed cut ticks from the churn run's final state.
+CUT_TICK = 16
+CUT_REPS = 3
+
+
+def cut_parity_case(n: int, device: str):
+    """``(state, inputs)`` of the cut parity: a converged mesh of ``n``
+    (full state, int32 timers) with peer 5 cut off by a partition for two
+    ticks, so pings to it time out; the probed tick's inputs heal the
+    partition and kill peer 9, so suspicion escalates and calls 3-4
+    deliver. The two lead-in ticks run the card's kernels on the card."""
+    import torch
+
+    from kaboodle_tpu_torch.sim import init_state, make_tick_fn
+    from kaboodle_tpu_torch.sim.state import idle_inputs
+
+    st = init_state(n, seed=5, ring_contacts=n - 1, announced=True, device=device)
+    part = torch.zeros(n, dtype=torch.int32, device=device)
+    part[5] = 1
+    cut_off = dataclasses.replace(idle_inputs(n, device=device), partition=part)
+    tick = make_tick_fn(all_kernels_cfg(), faulty=True)
+    for _ in range(2):
+        st, _ = tick(st, cut_off)
+    kill = torch.zeros(n, dtype=torch.bool, device=device)
+    kill[9] = True
+    return st, dataclasses.replace(idle_inputs(n, device=device), kill=kill)
+
+
+def card_cpu_mismatch(card: tuple, cpu: tuple, where: str) -> float:
+    """Raise unless ``(state_np, metrics_np)`` of the card equals the CPU's:
+    every integer and bool leaf bit for bit, ``latency`` with NaN positions
+    equal and rtol 1e-5. Returns the largest finite ``latency`` difference."""
+    import numpy as np
+
+    worst_lat = 0.0
+    for part in (0, 1):
+        for k, g in card[part].items():
+            w = cpu[part][k]
+            if g is None or w is None:
+                if (g is None) != (w is None):
+                    raise AssertionError(f"{where}: {k} present on one side only")
+                continue
+            if k == "latency":
+                if not np.array_equal(np.isnan(g), np.isnan(w)):
+                    raise AssertionError(f"{where}: latency NaN positions differ")
+                np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=f"{where} latency")
+                fin = ~np.isnan(w)
+                if fin.any():
+                    worst_lat = max(worst_lat, float(np.abs(g[fin] - w[fin]).max()))
+            elif not np.array_equal(g, w):
+                raise AssertionError(f"{where}: {k} differs between card and CPU")
+    return worst_lat
+
+
+def phase_stage_cuts(final=None, device="cuda") -> dict:
+    """The stage probe (phase 32): each cut of the full program on the card
+    against the CPU at N = 1,024, then each cut timed in context from the
+    churn run's final state (``final``, on the card; the ``churn`` phase is
+    run here when it is not given)."""
+    import statistics
+
+    import torch
+
+    if final is None:
+        final = phase_churn()[1]
+
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.sim import baseline_scenario, make_tick_fn
+    from kaboodle_tpu_torch.sim.state import (
+        metrics_to_numpy,
+        state_to_numpy,
+    )
+    from kaboodle_tpu_torch.spec import WAITING_FOR_PING
+
+    t_phase = time.perf_counter()
+    cfg = all_kernels_cfg()
+    labels = make_tick_fn(cfg, faulty=True).graph.cut_labels
+    cuts = (*labels, None)  # None: the uncut full program
+
+    def build(cut):
+        return make_tick_fn(cfg, faulty=True, _cut=cut, program=None if cut else "full")
+
+    # -- card against CPU, bit for bit -----------------------------------
+    st, inp = cut_parity_case(CUT_PARITY_N, device)
+    st_cpu, inp_cpu = to_host(st), to_host(inp)
+    timed_out = bool(((st_cpu.state == WAITING_FOR_PING)
+                      & (int(st_cpu.tick) - st_cpu.timer.to(torch.int64)
+                         >= cfg.ping_timeout_ticks)).any())
+    parity, timers = {}, {}
+    for cut in cuts:
+        tick = build(cut)
+        got = tick(st, inp)
+        want = tick(st_cpu, inp_cpu)
+        name = cut or "full"
+        parity[name] = card_cpu_mismatch(
+            (state_to_numpy(got[0]), metrics_to_numpy(got[1])),
+            (state_to_numpy(want[0]), metrics_to_numpy(want[1])), f"stage_cuts {name}")
+        timers[name] = int((want[0].timer != st_cpu.timer).sum())
+        del got
+    del st, inp
+    t_parity = time.perf_counter() - t_phase
+
+    # -- each cut timed in context at config 3's width -------------------
+    sc = baseline_scenario(3)
+    inputs = sc.build(device).at(CUT_TICK)
+    n = final.state.shape[-1]
+    card = card_line()
+    ms, per_tick = {}, {}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for cut in cuts:
+        tick = build(cut)
+        name = cut or "full"
+        before = counts()
+        tick(final, inputs)  # the warm-up, whose launches are one tick's
+        torch.cuda.synchronize()
+        after = counts()
+        per_tick[name] = {k: after[k] - before[k] for k in after}
+        reps = []
+        for _ in range(CUT_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tick(final, inputs)
+            end.record()
+            torch.cuda.synchronize()
+            reps.append(start.elapsed_time(end))
+        ms[name] = {"median": statistics.median(reps), "reps": reps}
+    launches = counts()
+    names = [c or "full" for c in cuts]
+    stages = {f"{a}->{b}": ms[b]["median"] - ms[a]["median"] for a, b in zip(names, names[1:])}
+    stages = {f"start->{names[0]}": ms[names[0]]["median"], **stages}
+    k134 = ("fused_fp_idv", "fused_suspicion", "fused_oldest_k")
+    line = {"stage_cuts": {"card": card, "n": n, "tick": int(final.tick),
+                           "inputs": f"churn schedule tick {CUT_TICK}",
+                           "ms": {k: v["median"] for k, v in ms.items()}, "stages_ms": stages,
+                           "launches_per_tick": {c: {k: per_tick[c][k] for k in k134}
+                                                 for c in names}}}
+    out = {"phase": "stage_cuts", "card": card, "labels": list(labels),
+           "parity": {"n": CUT_PARITY_N, "equal": names, "timed_out_ping": timed_out,
+                      "latency_max_abs_diff": parity, "timers_moved": timers},
+           "parity_s": t_parity, "n": n, "cut_ms": ms, "stages_ms": stages,
+           "launches_per_tick": per_tick, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    print(json.dumps(line), flush=True)
+    if not timed_out:
+        raise AssertionError("stage_cuts: the parity state has no timed-out ping to escalate")
+    if not timers["c2"] < timers["c34"]:
+        raise AssertionError(f"stage_cuts: calls 3-4 moved no timer: {timers}")
+    require_launches("stage_cuts G", per_tick["G"], k134)
+    return out
 
 
 # ------------------------------------------------------------------ sharded
@@ -783,6 +967,7 @@ SHAPE_RUNS = {
     "churn_final_state": ("churn", "telemetry_churn", "facade", "checkpoint_resume"),
     "warp_drain": ("warp_drain_churn", "warp_drain_dense", "warp_drain_warp", "warp_drain_bank",
                    "warp_drain_distributional"),
+    "costscope": ("costscope",),
 }
 # The kernels each main-path run must launch: the boot's lean state hashes
 # a precomputed record vector (K2), every full state its identity views (K1).
@@ -943,8 +1128,6 @@ def phase_churn() -> dict:
 
 
 def phase_parity() -> dict:
-    import numpy as np
-
     from kaboodle_tpu_torch.config import SwimConfig
     from kaboodle_tpu_torch.sim import baseline_scenario, init_state, make_tick_fn
     from kaboodle_tpu_torch.sim.state import metrics_to_numpy, state_to_numpy
@@ -966,22 +1149,7 @@ def phase_parity() -> dict:
                 st, m = tick(st, inp.at(t))
                 sides[dev] = (st, inp)
                 res[dev] = (state_to_numpy(st), metrics_to_numpy(m))
-            for part in (0, 1):
-                for k, g in res["cuda"][part].items():
-                    w = res["cpu"][part][k]
-                    if g is None or w is None:
-                        if (g is None) != (w is None):
-                            raise AssertionError(f"tick {t}: {k} present on one side only")
-                        continue
-                    if k == "latency":
-                        if not np.array_equal(np.isnan(g), np.isnan(w)):
-                            raise AssertionError(f"tick {t}: latency NaN positions differ")
-                        np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=f"tick {t} latency")
-                        fin = ~np.isnan(w)
-                        if fin.any():
-                            worst_lat = max(worst_lat, float(np.abs(g[fin] - w[fin]).max()))
-                    elif not np.array_equal(g, w):
-                        raise AssertionError(f"tick {t}: {k} differs between card and CPU")
+            worst_lat = max(worst_lat, card_cpu_mismatch(res["cuda"], res["cpu"], f"tick {t}"))
         out["deterministic" if det else "random"] = {
             "equal_ticks": sc.ticks, "latency_max_abs_diff": worst_lat,
             "final_converged": bool(res["cuda"][1]["converged"]),
@@ -3502,6 +3670,7 @@ def main() -> int:
     boot_final = to_host(boot_final)
     churn, final, churn_metrics = phase_churn()
     churn_state = phase_kernels_churn_state(final)
+    cuts = phase_stage_cuts(final)
     final, churn_metrics = to_host(final), to_host(churn_metrics)
     tele = phase_telemetry(churn, final, churn_metrics, boot, boot_final)
     shard = phase_sharded(boot, boot_final)
@@ -3554,7 +3723,8 @@ def main() -> int:
             "fed_serve_dryrun": fed["dryrun"]["launches"],
             "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"],
             "sparse_parity": sparse_par["launches"], "sparse_boot": sparse_boot["launches"],
-            **cli_out["launches"], "costscope": cs["launches"]}
+            **cli_out["launches"], "costscope": cs["launches"],
+            "stage_cuts": cuts["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

@@ -63,7 +63,7 @@ class Finding:
 
 @dataclasses.dataclass(frozen=True)
 class Rule:
-    id: str
+    id: str  # noqa: KB104 — dataclass field, not a scope binding that can leak
     title: str
     explain: str
     check: Callable[["Module"], list[Finding]]

@@ -4,7 +4,9 @@ What the JAX tick draws, reproduced bit for bit (jax 0.9.0 with
 ``jax_threefry_partitionable=True``):
 
 - ``PRNGKey(seed)`` is the word pair ``(0, seed)`` (``prng.threefry_seed``);
-- ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))`` (``_threefry_fold_in``);
+- ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))`` (``_threefry_fold_in``),
+  and row i of ``split(key, num)`` is ``threefry2x32(key, (0, i))``
+  (``_threefry_split_foldlike``);
 - 32 random bits at flat position ``c`` of a shape are ``b1 ^ b2`` with
   ``(b1, b2) = threefry2x32(key, (c >> 32, c & 0xFFFFFFFF))``
   (``_threefry_random_bits_partitionable`` over ``iota_2x32_shape``);
@@ -83,6 +85,15 @@ def fold_in(key: Key, data) -> Key:
     """``jax.random.fold_in(key, data)``; ``data`` an int or a tensor that
     broadcasts against the key words."""
     return threefry2x32(key, 0, _u32(data))
+
+
+def split(key: Key, num: int = 2) -> tuple[Key, ...]:
+    """The ``num`` rows of ``jax.random.split(key, num)``, as word pairs.
+
+    Under ``jax_threefry_partitionable=True`` (``_threefry_split_foldlike``)
+    row ``i`` is ``threefry2x32(key, (0, i))``: the counter words of
+    ``iota_2x32_shape((num,))``, which is ``fold_in(key, i)``."""
+    return tuple(threefry2x32(key, 0, i) for i in range(num))
 
 
 def batch_shape(key: Key) -> tuple[int, ...]:

@@ -64,15 +64,16 @@ from kaboodle_tpu_torch.ops.sampling import (
 )
 from kaboodle_tpu_torch.phasegraph import rng as pg_rng
 from kaboodle_tpu_torch.phasegraph.exec import INF, _add32, _bool_matmul
+from kaboodle_tpu_torch.phasegraph.graph import build_graph
+from kaboodle_tpu_torch.phasegraph.plan import plan
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs, TickMetrics
 from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
 from kaboodle_tpu_torch.telemetry.counters import RECORD_BYTES, ProtocolCounters, TickTelemetry
 
 _NAN = float("nan")
 
-# The graph ops this tick implements: the JAX package's ``_known`` set
-# (blocked.py), pinned by the tests against the op names of
-# ``plan(build_graph(cfg, faulty, telemetry), "blocked")``.
+# The graph ops this tick has bodies for. A build plans its graph into the
+# ``blocked`` program and refuses one that runs an op outside this set.
 BLOCKED_OPS = frozenset({
     "rng_streams", "churn", "delivery_gate", "row_stats", "join_gate",
     "manual_targets", "suspicion", "probe_draw", "join_insert",
@@ -134,6 +135,11 @@ def make_chunked_tick_fn(
             "boot_union=True requires faulty=False: the closed-form join "
             "union assumes fault-free delivery on the boot tick"
         )
+    # The blocked program: the full program's ops in the full order, row-blocked.
+    prog = plan(build_graph(cfg, faulty=faulty, telemetry=telemetry), "blocked")
+    unknown = set(prog.op_names()) - BLOCKED_OPS
+    if unknown:
+        raise NotImplementedError(f"graph ops without blocked bodies: {sorted(unknown)}")
     det = cfg.deterministic
     timeout = cfg.ping_timeout_ticks
     gossip_backdate = cfg.max_peer_share_age_ticks if cfg.backdate_gossip_inserts else 0

@@ -38,30 +38,25 @@ import torch
 
 from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.parallel import collectives as C
+from kaboodle_tpu_torch.phasegraph import build_graph, plan
 from kaboodle_tpu_torch.phasegraph.blocked import make_chunked_tick_fn
-from kaboodle_tpu_torch.phasegraph.exec import (
-    PALLAS_BATCH_ERROR,
-    dispatch_pred_terms,
-    make_tick_fn,
-)
+from kaboodle_tpu_torch.phasegraph.exec import PALLAS_BATCH_ERROR, make_tick_fn
 from kaboodle_tpu_torch.phasegraph.span import make_leap_fn
 
 # The engines this module builds (the JAX package's names, in its order).
 ENGINES = ("dense", "fused", "chunked", "sharded", "fleet", "warp", "serve", "sparse")
 
-# The sparse program's tail passes and their ops, ``plan(build_graph(cfg,
-# faulty, layout="blocked_topk"), "sparse").tail`` of the JAX planner (the
-# same for ``faulty`` True and False; pinned by
-# tests/test_torch_sparseplane.py); the pass names are
-# ``sparseplane.kernel.SPARSE_TAIL_PASSES``.
-SPARSE_PASSES = {
-    "expiry": ("suspicion",),
-    "draw": ("probe_draw",),
-    "exchange": ("call1", "call2", "calls34"),
-    "gossip": ("anti_entropy",),
-    "repair": ("block_repair",),
-    "finish": ("finish",),
-}
+
+
+def _tail_passes(program) -> dict[str, tuple[str, ...]]:
+    return {p.name: p.op_names for p in program.tail}
+
+
+# The sparse program's tail passes and their ops: the plan of the default
+# blocked_topk graph (the same for ``faulty`` True and False). The kernel
+# runs them in ``sparseplane.kernel.SPARSE_TAIL_PASSES`` order.
+SPARSE_PASSES = _tail_passes(plan(
+    build_graph(SwimConfig(join_broadcast_enabled=False), layout="blocked_topk"), "sparse"))
 
 
 def make_dense_tick(cfg: SwimConfig, faulty: bool = True, telemetry: bool = False) -> Callable:
@@ -109,9 +104,9 @@ def make_sharded_tick(
         st, m = tick(st, inp)
         return constrain_state(st, mesh), m
 
-    # The dense tick's dispatch predicate (pinned to the JAX planner's
-    # sharded tick by tests/test_torch_parallel.py).
-    sharded_tick.pred_terms = dispatch_pred_terms(cfg)
+    sharded_tick.graph = tick.graph
+    sharded_tick.programs = tick.programs
+    sharded_tick.pred_terms = tick.programs["fused"].pred_terms  # the dispatch predicate
     return sharded_tick
 
 
@@ -136,17 +131,14 @@ def make_sparse_tick(cfg: SwimConfig, spec, faulty: bool = True) -> Callable:
     """The blocked_topk-layout tick: ``[N, K]`` neighbor blocks, counter RNG.
 
     ``spec`` is a :class:`~kaboodle_tpu_torch.sparseplane.state.SparseSpec`.
-    There is no planner in the port: the program's tail is
-    :data:`SPARSE_PASSES`, attached to the tick as ``passes``, and its pass
-    order must be the kernel's."""
-    from kaboodle_tpu_torch.sparseplane.kernel import SPARSE_TAIL_PASSES, make_sparse_tick_fn
+    The tick is built from ``plan(build_graph(cfg, faulty=faulty,
+    layout="blocked_topk"), "sparse")``, which the kernel checks against the
+    passes it runs, and carries it as ``tick.graph`` / ``tick.programs``;
+    ``tick.passes`` is its tail, pass by pass."""
+    from kaboodle_tpu_torch.sparseplane.kernel import make_sparse_tick_fn
 
-    if tuple(SPARSE_PASSES) != SPARSE_TAIL_PASSES:
-        raise AssertionError(
-            f"sparse plan/kernel drift: planned tail {tuple(SPARSE_PASSES)}, "
-            f"kernel implements {SPARSE_TAIL_PASSES}")
     tick = make_sparse_tick_fn(cfg, spec, faulty=faulty)
-    tick.passes = SPARSE_PASSES
+    tick.passes = _tail_passes(tick.programs["sparse"])
     return tick
 
 

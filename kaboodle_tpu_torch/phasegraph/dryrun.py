@@ -22,11 +22,8 @@ is built at toy N, runs real ticks, and its outputs are diffed bit for bit
 
 Any mismatch exits 1. It runs on the card unless ``--device`` names
 another. A process group the dryrun made for its sharded arm is destroyed
-before it returns. The port has no planner: the
-``plan full`` / ``plan fused`` lines come from the pass tables held as data
-(``telemetry/summary.py::PHASE_PROGRAMS``, the JAX planner's telemetry
-plans, pinned by a test) with the telemetry-only ``counters`` op taken out,
-which is the plan of this dryrun's graph.
+before it returns. The ``plan full`` / ``plan fused`` lines come straight
+from the planner, over the graph of the dryrun's faulty build.
 """
 
 from __future__ import annotations
@@ -36,23 +33,18 @@ import dataclasses
 import json
 import sys
 
-# The telemetry build's one extra op: absent from the dryrun's graph.
-_TELEMETRY_OPS = ("counters",)
-
-
 def plan_lines() -> list[str]:
-    """The JAX dryrun's ``plan full`` / ``plan fused`` lines for
-    ``build_graph(SwimConfig(deterministic=True), faulty=True)``."""
-    from kaboodle_tpu_torch.telemetry.summary import PHASE_PROGRAMS
+    """The ``plan full`` / ``plan fused`` lines (the op/pass summary CI logs)
+    for ``build_graph(SwimConfig(deterministic=True), faulty=True)``."""
+    from kaboodle_tpu_torch.config import SwimConfig
+    from kaboodle_tpu_torch.phasegraph import build_graph, plan
 
+    graph = build_graph(SwimConfig(deterministic=True), faulty=True)
     lines = []
     for mode in ("full", "fused"):
-        prog = PHASE_PROGRAMS[mode]
-        passes = [[op for op in p["ops"] if op not in _TELEMETRY_OPS] for p in prog["passes"]]
-        passes = [ops for ops in passes if ops]
-        ops = [op for p in passes for op in p]
-        lines.append(f"phasegraph: plan {mode}: {len(passes)} passes, "
-                     f"{len(prog['pruned'])} pruned, ops={','.join(ops)}")
+        prog = plan(graph, mode)
+        lines.append(f"phasegraph: plan {mode}: {len(prog.passes)} passes, "
+                     f"{len(prog.pruned)} pruned, ops={','.join(prog.op_names())}")
     return lines
 
 

@@ -17,9 +17,18 @@ gated phase. ``_fast`` is the fused program: on a tick with no Join
 broadcast and no suspicion activity every delivery mask derives from
 ``[N]`` vectors, so the update is one composed write. The dispatch takes
 ``_fast`` exactly when the predicate ``any_a2 | any_join`` is false
-(``any_join`` only exists with Join broadcasts on) -- the predicate the
-JAX package's planner derives, hard-coded here (``dispatch_pred_terms``)
-and pinned against the planner by the tests.
+(``any_join`` only exists with Join broadcasts on). Both programs and the
+predicate come from the planner: each build plans its graph
+(``build_graph(cfg, faulty, telemetry)``) into the ``full`` and ``fused``
+programs, checks them against the op bodies this module has
+(``_check_programs``), and ORs the fused program's ``pred_terms``. The
+tick carries them as ``tick.graph`` and ``tick.programs``.
+
+``_cut`` is the stage probe: a cut label of the graph (``A``, ``c1``,
+``c2``, ``c34``, ``G``: after the ping-target draw, call 1, call 2, calls
+3-4 and the anti-entropy partner pick) ends the full program right after
+that op and returns the partial state with ``tick + 1`` and zeroed
+metrics. Timing successive cuts splits a tick into its stages in context.
 
 Where the JAX tick has ``lax.cond``, this tick has a Python ``if`` on a
 device value; each gated branch is an identity when its gate is false, so
@@ -98,6 +107,8 @@ from kaboodle_tpu_torch.ops.sampling import (
 )
 from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.phasegraph import rng as pg_rng
+from kaboodle_tpu_torch.phasegraph.graph import build_graph
+from kaboodle_tpu_torch.phasegraph.plan import plan
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs, TickMetrics
 from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
 from kaboodle_tpu_torch.telemetry.counters import RECORD_BYTES, ProtocolCounters, TickTelemetry
@@ -111,9 +122,60 @@ PALLAS_BATCH_ERROR = (
 )
 
 
+# The op bodies this module implements, by program region: the prologue
+# runs before the dispatch, ``_rest`` runs the full program's tail in graph
+# order, ``_fast`` the fused program's two passes (the A3 draw, then the
+# folded update). ``_check_programs`` holds a build's plans to them, so a
+# graph op with no body here is a build error, never a silent drift.
+_PROLOGUE_OPS = frozenset(
+    ("rng_streams", "churn", "delivery_gate", "row_stats", "join_gate",
+     "manual_targets")
+)
+_FULL_TAIL_OPS = frozenset(
+    ("suspicion", "probe_draw", "join_insert", "failed_delivery",
+     "join_replies", "call1", "call2", "calls34", "anti_entropy",
+     "counters", "finish")
+)
+_FUSED_DRAW_OPS = frozenset(("probe_draw",))
+_FUSED_UPDATE_OPS = frozenset(
+    ("call1", "call2", "anti_entropy", "counters", "finish")
+)
+_PRED_TERMS = frozenset(("any_a2", "any_join"))
+# The ops ``_rest`` can end after, by their cut label.
+_CUT_LABELS = frozenset(("A", "c1", "c2", "c34", "G"))
+
+
+def _check_programs(graph, full_prog, fused_prog) -> None:
+    names = {op.name for op in graph.ops}
+    unimplemented = names - _PROLOGUE_OPS - _FULL_TAIL_OPS
+    if unimplemented:
+        raise NotImplementedError(
+            f"graph ops without exec bodies: {sorted(unimplemented)}"
+        )
+    for op in graph.prologue:
+        if op.name not in _PROLOGUE_OPS:
+            raise NotImplementedError(f"{op.name}: no prologue body")
+    if not set(full_prog.op_names()) <= _PROLOGUE_OPS | _FULL_TAIL_OPS:
+        raise NotImplementedError(f"full plan runs ops without bodies: {full_prog.op_names()}")
+    draw, update = fused_prog.tail
+    if not (set(draw.op_names) <= _FUSED_DRAW_OPS
+            and set(update.op_names) <= _FUSED_UPDATE_OPS):
+        raise NotImplementedError(
+            "fused plan groups ops this module does not fold: "
+            f"draw={draw.op_names} update={update.op_names}"
+        )
+    if not set(fused_prog.pred_terms) <= _PRED_TERMS:
+        raise NotImplementedError(
+            f"unknown dispatch pred terms {fused_prog.pred_terms}"
+        )
+    if not set(graph.cut_labels) <= _CUT_LABELS:
+        raise NotImplementedError(f"unknown cut labels {graph.cut_labels}")
+
+
 def dispatch_pred_terms(cfg: SwimConfig) -> tuple[str, ...]:
-    """The activity terms whose disjunction sends a tick to the full program."""
-    return ("any_a2", "any_join") if cfg.join_broadcast_enabled else ("any_a2",)
+    """The activity terms whose disjunction sends a tick to the full program:
+    the fused plan's ``pred_terms`` (the same for faulty and fault-free builds)."""
+    return plan(build_graph(cfg), "fused").pred_terms
 
 
 def _matmul_flops(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -236,6 +298,7 @@ def make_tick_fn(
     program: str | None = None,
     telemetry: bool = False,
     group=None,
+    _cut: str | None = None,
 ) -> Callable[[MeshState, TickInputs], tuple[MeshState, TickMetrics | TickTelemetry]]:
     """Build the tick function for a protocol config.
 
@@ -253,12 +316,36 @@ def make_tick_fn(
     its ranks (module docstring): the state and inputs are then each rank's
     rows, and so are the digests; metrics and counters are the whole mesh's
     on every rank.
+
+    ``_cut`` is the stage probe, not protocol surface: a label of
+    ``tick.graph.cut_labels`` ends the full program right after the op that
+    carries it, and the tick returns the partial state (``tick + 1``) with
+    zeroed metrics. A cut build always runs the full program (no dispatch);
+    it takes neither ``telemetry=True``, nor ``program="fused"``, nor a
+    ``group``. The tick carries its graph and its planned programs as
+    ``tick.graph`` and ``tick.programs`` (``"full"``, ``"fused"``).
     """
+    # The op graph of this build and the two programs the dispatch composes;
+    # the cut labels and the dispatch predicate are read off them.
+    graph = build_graph(cfg, faulty=faulty, telemetry=telemetry)
+    if _cut is not None and _cut not in graph.cut_labels:
+        # A typoed label would time a whole tick under a stage's name.
+        raise ValueError(f"unknown _cut label {_cut!r}")
+    if telemetry and _cut is not None:
+        # Counters over a truncated tick would be numbers with real names.
+        raise ValueError("telemetry=True is incompatible with a _cut probe")
     if program not in (None, "full", "fused"):
         raise ValueError(f"unknown program {program!r}")
+    if program == "fused" and _cut is not None:
+        raise ValueError("_cut probes truncate the full program only")
+    if group is not None and _cut is not None:
+        raise ValueError("_cut probes run on the dense tick: the row-sharded tick has no cut")
+    full_prog = plan(graph, "full")
+    fused_prog = plan(graph, "fused")
+    _check_programs(graph, full_prog, fused_prog)
     det = cfg.deterministic
     kernel_flags = cfg.use_pallas_fp or cfg.use_pallas_oldest_k or cfg.use_pallas_suspicion
-    pred_terms = dispatch_pred_terms(cfg)
+    pred_terms = fused_prog.pred_terms
     gossip_backdate = cfg.max_peer_share_age_ticks if cfg.backdate_gossip_inserts else 0
     timeout = cfg.ping_timeout_ticks
 
@@ -434,6 +521,23 @@ def make_tick_fn(
             dn = newm.sum(dim=-1, dtype=torch.int32)
             S, T, lat, idv = apply_marks(S, T, lat, idv, mark)
             return S, T, lat, idv, dfp, dn
+
+        def _early_return(S, T, lat, idv):
+            """A ``_cut`` exit: the partial state, zeroed metrics."""
+            partial = MeshState(
+                state=S, timer=T, alive=alive, identity=st.identity,
+                never_broadcast=never_b, last_broadcast=last_b,
+                kpr_partner=st.kpr_partner, kpr_fp=st.kpr_fp, kpr_n=st.kpr_n,
+                tick=st.tick + 1, key=st.key, latency=lat, id_view=idv,
+            )
+            f32 = torch.zeros(batch, dtype=torch.float32, device=dev)
+            metrics = TickMetrics(
+                messages_delivered=zero_b, converged=torch.zeros(batch, dtype=torch.bool,
+                                                                 device=dev),
+                agree_fraction=f32, mean_membership=f32,
+                fingerprint_min=zero_b, fingerprint_max=zero_b,
+            )
+            return partial, metrics
 
         # ================= A. Active phase =================================
         # A1: maybe_broadcast_join (kaboodle.rs:228-251).
@@ -667,6 +771,8 @@ def make_tick_fn(
             tgt_cell = _row_mark(idx, ping_tgt, has_ping)
             S_ = torch.where(tgt_cell, WAITING_FOR_PING, S_)
             T_ = torch.where(tgt_cell, tT, T_)
+            if _cut == "A":
+                return _early_return(S_, T_, lat_, idv_)
 
             member_a = S_ > 0
             row_count_a = member_a.sum(dim=-1, dtype=torch.int32)
@@ -759,6 +865,8 @@ def make_tick_fn(
             fp0, n0 = fp_count(S_, idv_)
             S_, T_, lat_, idv_, dfp1, dn1 = apply_marks_delta(S_, T_, lat_, idv_, mark1)
             fp1, n1 = _add32(fp0, dfp1), n0 + dn1
+            if _cut == "c1":
+                return _early_return(S_, T_, lat_, idv_)
 
             del_pping = del_pr & ok_edge(proxies, jstar[..., None], None)  # proxy -> suspect
 
@@ -783,6 +891,8 @@ def make_tick_fn(
                 fp2, n2 = select(esc_m, fp2, no_fp), select(esc_m, n2, no_fp)
             else:
                 fp2 = n2 = no_fp
+            if _cut == "c2":
+                return _early_return(S_, T_, lat_, idv_)
 
             del_pack = del_pping & ok_edge(jstar[..., None], proxies, None)  # [.., N, k]
             pop_hit = ((_take_vec(ping_tgt_g, proxies) == jstar[..., None])
@@ -809,6 +919,8 @@ def make_tick_fn(
                     clr_cell = cleared[..., :, None] & jstar_cell & (S_ > 0)
                     S_ = torch.where(clr_cell, KNOWN, S_)
                     T_ = torch.where(clr_cell, tT, T_)
+            if _cut == "c34":
+                return _early_return(S_, T_, lat_, idv_)
 
             # ============= G. Anti-entropy ==================================
             if joining or escalating:
@@ -854,6 +966,8 @@ def make_tick_fn(
             partner = torch.where(has_req, partner, -1)
             del_kpr = has_req & ok_edge(rows, partner, "s")
             del_rep = del_kpr & ok_edge(partner, rows, "d")  # partner -> requester
+            if _cut == "G":
+                return _early_return(S_, T_, lat_, idv_)
 
             S_, T_, lat_, idv_, fp_f, n_f, *ae = _anti_entropy(
                 S_, T_, lat_, idv_, partner, del_kpr, del_rep, fp_g, n_g
@@ -991,9 +1105,10 @@ def make_tick_fn(
         # On an ensemble the gate is whether ANY member needs the full
         # program; the full program is exact for every member (the dispatch
         # contract), so the fused one runs only when no member needs more.
+        # A cut always runs the full program.
         if program == "fused":
             return _fast()
-        if program == "full" or not cfg.fast_path:
+        if program == "full" or not cfg.fast_path or _cut is not None:
             return _rest()
         terms = {"any_a2": any_a2, "any_join": any_join}
         pred = terms[pred_terms[0]]
@@ -1001,4 +1116,6 @@ def make_tick_fn(
             pred = pred | terms[term]
         return _rest() if bool(pred) else _fast()
 
+    tick.graph = graph
+    tick.programs = {"full": full_prog, "fused": fused_prog}
     return tick

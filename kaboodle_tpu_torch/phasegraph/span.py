@@ -41,10 +41,9 @@ partners, gathered once a step. The phase-0 priority, a scatter-min over
 every requester, is all-reduced; the span-invariant fingerprints, map
 sizes and aliveness are gathered once a leap.
 
-There is no planner in the port: the op sets the JAX planner derives for
-the ``span`` and ``hybrid`` programs are written out in ``_SPAN_PASSES``
-and ``_HYBRID_PASSES`` and pinned to it by the tests; this module
-implements exactly those passes.
+``_SPAN_PASSES`` and ``_HYBRID_PASSES`` are the passes this module
+implements; a build plans the fault-free graph into the ``span`` or
+``hybrid`` program and refuses a program whose passes differ.
 """
 
 from __future__ import annotations
@@ -61,11 +60,13 @@ from kaboodle_tpu_torch.ops.sampling import pick_candidate
 from kaboodle_tpu_torch.parallel import collectives as C
 from kaboodle_tpu_torch.phasegraph import rng as pg_rng
 from kaboodle_tpu_torch.phasegraph.exec import INF, _member_offset, _take_vec
+from kaboodle_tpu_torch.phasegraph.graph import build_graph
+from kaboodle_tpu_torch.phasegraph.plan import plan
 from kaboodle_tpu_torch.sim.state import MeshState
 from kaboodle_tpu_torch.spec import KNOWN
 from kaboodle_tpu_torch.telemetry.trace import op_scope
 
-# The span program's passes (``plan(graph, "span").tail`` of the JAX planner).
+# The span program's passes this module implements (``plan(graph, "span").tail``).
 _SPAN_PASSES = {
     "draw": ("rng_streams", "probe_draw"),
     "refresh": ("call1", "call2"),
@@ -73,7 +74,7 @@ _SPAN_PASSES = {
 }
 
 # The hybrid (near-quiescent) program's passes: the strict span plus the
-# sterile anti-entropy pass (``plan(graph, "hybrid").tail``).
+# sterile anti-entropy pass, as implemented (``plan(graph, "hybrid").tail``).
 _HYBRID_PASSES = {
     "draw": ("rng_streams", "probe_draw"),
     "refresh": ("call1", "call2"),
@@ -146,6 +147,12 @@ def make_leap_fn(cfg: SwimConfig, k: int, hybrid: bool = False, masked: bool = F
     """
     if k < 1:
         raise ValueError("need k >= 1")
+    # Every op outside these passes must have been pruned by the planner.
+    mode = "hybrid" if hybrid else "span"
+    want = _HYBRID_PASSES if hybrid else _SPAN_PASSES
+    got = {p.name: p.op_names for p in plan(build_graph(cfg, faulty=False), mode).tail}
+    if got != want:
+        raise NotImplementedError(f"{mode} plan {got} != leap implementation {want}")
     det = cfg.deterministic
     kk = cfg.num_candidate_target_peers
 

@@ -1,9 +1,10 @@
 """The blocked-sparse SWIM tick: segment gather/scatter over ``[N, K]`` blocks.
 
 The port of ``kaboodle_tpu/sparseplane/kernel.py``, bit-exact with it per
-tick in every ``SparseState`` and ``SparseTickMetrics`` field. The pass
-grouping is the JAX planner's ``plan(build_graph(cfg, layout=
-"blocked_topk"), "sparse").tail`` (pinned by tests/test_torch_sparseplane.py):
+tick in every ``SparseState`` and ``SparseTickMetrics`` field. The passes
+are ``SPARSE_TAIL_PASSES``; a build plans ``plan(build_graph(cfg,
+layout="blocked_topk"), "sparse")`` and refuses a program whose tail is
+not those passes in this order (:func:`_sparse_program`):
 
   expiry    suspicion twin: WaitingForIndirectPing slots age out, the oldest
             timed-out WaitingForPing slot per row escalates to an indirect
@@ -68,6 +69,7 @@ from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.ops import threefry
 from kaboodle_tpu_torch.ops.hashing import fingerprint_agreement
 from kaboodle_tpu_torch.ops.sampling import choose_one_of_oldest_k
+from kaboodle_tpu_torch.phasegraph import build_graph, plan
 from kaboodle_tpu_torch.sparseplane import rng as sprng
 from kaboodle_tpu_torch.sparseplane.repair import repair_blocks, reseed_revived
 from kaboodle_tpu_torch.sparseplane.state import (
@@ -80,7 +82,7 @@ from kaboodle_tpu_torch.sparseplane.state import (
 from kaboodle_tpu_torch.spec import KNOWN, WAITING_FOR_INDIRECT_PING, WAITING_FOR_PING
 from kaboodle_tpu_torch.telemetry.trace import op_scope
 
-# The planner's tail grouping for mode="sparse", in the JAX kernel's order.
+# The tail passes this kernel runs, in its order.
 SPARSE_TAIL_PASSES = ("expiry", "draw", "exchange", "gossip", "repair", "finish")
 
 # Stream order of the keys the tick derives (``rng.stream_keys``).
@@ -137,10 +139,28 @@ def _clip_rank(u: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     return torch.minimum(want.clamp(min=0), (count - 1).clamp(min=0)[:, None])
 
 
+def _sparse_program(cfg: SwimConfig, faulty: bool):
+    """``(graph, program)``: the blocked_topk graph of a build and its
+    ``sparse`` plan, checked against the passes this kernel runs."""
+    graph = build_graph(cfg, faulty=faulty, layout="blocked_topk")
+    program = plan(graph, "sparse")
+    planned = tuple(p.name for p in program.tail)
+    implemented = tuple(n for n in SPARSE_TAIL_PASSES if n in planned)
+    if planned != implemented:
+        raise AssertionError(
+            f"sparse plan/kernel drift: planner tail {planned}, kernel "
+            f"implements {SPARSE_TAIL_PASSES}"
+        )
+    return graph, program
+
+
 def make_sparse_tick_fn(cfg: SwimConfig, spec: SparseSpec, faulty: bool = True):
     """Build the blocked-sparse tick: ``(SparseState, SparseTickInputs) ->
-    (SparseState, SparseTickMetrics)``, on the state's device."""
+    (SparseState, SparseTickMetrics)``, on the state's device. The tick
+    carries its graph and its planned program as ``tick.graph`` and
+    ``tick.programs`` (``"sparse"``)."""
     _validate(cfg)
+    graph, program = _sparse_program(cfg, faulty)
     timeout = int(cfg.ping_timeout_ticks)
     share_age = int(cfg.max_peer_share_age_ticks)
     n_proxy = int(cfg.num_indirect_ping_peers)
@@ -327,4 +347,6 @@ def make_sparse_tick_fn(cfg: SwimConfig, spec: SparseSpec, faulty: bool = True):
             )
         return new_st, metrics
 
+    tick.graph = graph
+    tick.programs = {"sparse": program}
     return tick

@@ -19,10 +19,9 @@ renders per-lane request/leap/spill tracks on the wall-clock timeline
 ``--serve-report`` prints a per-request waterfall plus a per-phase SLO
 table (queue vs compute vs spill attribution).
 
-The port has no phase-graph planner, so the pass tables that annotate a
-trace (``--phase-program``) are held here as data: ``PHASE_PROGRAMS``
-holds the ``describe()`` dict of the JAX planner's plan of the default
-deterministic graph in each mode, and the tests pin the two equal.
+The pass tables that annotate a trace (``--phase-program``) come from the
+planner: ``PHASE_PROGRAMS`` holds, per mode, the ``describe()`` dict of the
+plan of the default deterministic telemetry graph (:func:`_phase_program`).
 """
 
 from __future__ import annotations
@@ -31,60 +30,27 @@ import argparse
 import json
 import sys
 
+from kaboodle_tpu_torch.config import SwimConfig
+from kaboodle_tpu_torch.phasegraph import build_graph, plan
 from kaboodle_tpu_torch.telemetry.counters import FIELDS
 from kaboodle_tpu_torch.telemetry.manifest import read_manifest
 
-# The phase-program tables: the setup passes every full build runs first,
-# then the tail of each mode (one pass per op unless the planner fused them).
-_PROLOGUE = ("rng_streams", "churn", "delivery_gate", "row_stats", "join_gate",
-             "manual_targets")
-_TAIL = ("suspicion", "probe_draw", "join_insert", "join_replies", "call1",
-         "call2", "calls34", "anti_entropy", "counters", "finish")
+
+def _phase_program(mode: str):
+    """The planned phase-graph program whose passes annotate the trace.
+
+    Built from the default deterministic config's op graph: pass membership
+    and pruning are decided by the planner per mode, not per run, so the
+    default build's plan is the right annotation for any run of that mode.
+    ``span`` plans derive from the fault-free graph by definition (a
+    quiescent span carries no scheduled events)."""
+    graph = build_graph(SwimConfig(deterministic=True), faulty=(mode != "span"), telemetry=True)
+    return plan(graph, mode)
 
 
-def _passes(stage: str, groups) -> list[dict]:
-    return [{"name": name, "stage": stage, "ops": list(ops)} for name, ops in groups]
-
-
-def _program(mode: str, passes: list[dict], pruned=(), pred_terms=()) -> dict:
-    return {"mode": mode, "passes": passes,
-            "pruned": [{"op": op, "reason": why} for op, why in pruned],
-            "pred_terms": list(pred_terms)}
-
-
-_SETUP = _passes("prologue", [(op, (op,)) for op in _PROLOGUE])
-_ONE_PER_OP = _SETUP + _passes("tail", [(op, (op,)) for op in _TAIL])
-_SPAN_FIXED = "span fixed point (quiescence predicate)"
-
-# ``plan(build_graph(SwimConfig(deterministic=True), faulty=mode != "span",
-# telemetry=True), mode).describe()`` of the JAX planner, per mode.
-PHASE_PROGRAMS = {
-    "fused": _program(
-        "fused",
-        _SETUP + _passes("tail", [
-            ("draw", ("probe_draw",)),
-            ("update", ("call1", "call2", "anti_entropy", "counters", "finish")),
-        ]),
-        pruned=[("suspicion", "excluded by dispatch pred (any_a2)"),
-                ("join_insert", "excluded by dispatch pred (any_join)"),
-                ("join_replies", "excluded by dispatch pred (any_join)"),
-                ("calls34", "excluded by dispatch pred (any_a2)")],
-        pred_terms=("any_a2", "any_join"),
-    ),
-    "full": _program("full", _ONE_PER_OP),
-    "span": _program(
-        "span",
-        _passes("tail", [
-            ("draw", ("rng_streams", "probe_draw")),
-            ("refresh", ("call1", "call2")),
-            ("ledger", ("anti_entropy", "counters", "finish")),
-        ]),
-        pruned=[(op, _SPAN_FIXED) for op in (
-            "delivery_gate", "row_stats", "join_gate", "manual_targets",
-            "suspicion", "join_insert", "join_replies", "calls34")],
-    ),
-    "blocked": _program("blocked", _ONE_PER_OP),
-}
+# The ``--phase-program`` tables, one ``describe()`` dict per mode.
+PHASE_PROGRAMS = {mode: _phase_program(mode).describe()
+                  for mode in ("fused", "full", "span", "blocked")}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -34,6 +34,7 @@ import torch
 from kaboodle_tpu_torch.config import SwimConfig
 from kaboodle_tpu_torch.ops.hashing import fingerprint_agreement, membership_fingerprint
 from kaboodle_tpu_torch.parallel import collectives as C
+from kaboodle_tpu_torch.phasegraph import build_graph, plan
 from kaboodle_tpu_torch.phasegraph.exec import _take_vec
 from kaboodle_tpu_torch.sim.state import MeshState, TickInputs
 from kaboodle_tpu_torch.spec import KNOWN
@@ -200,13 +201,10 @@ _OP_TERM_BITS = {"any_a2": SIG_ANY_A2, "any_join": SIG_ANY_JOIN}
 
 
 def hybrid_pred_terms(cfg: SwimConfig) -> tuple[str, ...]:
-    """The hybrid program's activity terms, in the JAX planner's order.
-
-    The port has no planner: this is what ``plan(build_graph(cfg,
-    faulty=False), "hybrid").pred_terms`` derives (pinned by
-    tests/test_torch_warp.py); ``any_join`` exists only with Join
-    broadcasts on."""
-    return ("any_join", "any_a2") if cfg.join_broadcast_enabled else ("any_a2",)
+    """The hybrid program's activity terms, in the planner's order:
+    ``plan(build_graph(cfg, faulty=False), "hybrid").pred_terms``
+    (``any_join`` exists only with Join broadcasts on)."""
+    return plan(build_graph(cfg, faulty=False), "hybrid").pred_terms
 
 
 # Bits any leap program (strict or hybrid) refuses; the hybrid program
@@ -289,8 +287,9 @@ def make_signature_fn(cfg: SwimConfig, group=None):
     unknown = set(hybrid_pred_terms(cfg)) - set(_OP_TERM_BITS)
     if unknown:
         raise NotImplementedError(
-            f"hybrid program declares signature terms {sorted(unknown)} the "
-            "activity signature does not measure"
+            f"hybrid plan declares signature terms {sorted(unknown)} the "
+            "activity signature does not measure — extend horizon.py's "
+            "vocabulary before leaping past them"
         )
     def signature(st: MeshState) -> torch.Tensor:
         S, alive = st.state, st.alive
