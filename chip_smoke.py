@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the hand CUDA kernels of ``kaboodle_tpu_torch/csrc/`` itself and
-runs thirty-two phases, each printing one JSON line; any failure raises and the
+runs thirty-three phases, each printing one JSON line; any failure raises and the
 script exits non-zero without the result line:
 
 1. build    -- nvcc for ``sm_90a``, one process per source, all at once;
@@ -112,7 +112,8 @@ script exits non-zero without the result line:
                a span-memo replay, all three final states bit-equal.
 17. warp_drain -- ``BENCH_warp3.json``'s end-to-end churn-recovery drain (bench.py
                ``_bench_warp_churn_recovery``) at N = 1,024, cut to 4,096 of
-               its 8,192 ticks (the smoke's budget):
+               its 8,192 ticks and its churn half to its last 512 (the
+               smoke's budget; 2,560 ticks, the calm half 2,048):
                full state, int32 timers, ``ping_timeout_ticks`` = 682,
                kernel flags on; the churn half dense once, then the calm half
                dense, through ``simulate_warped`` with a ledger, a memo
@@ -203,10 +204,12 @@ script exits non-zero without the result line:
                and four ``sweep_bucket`` records); the ``phasegraph`` dryrun
                at n = 32 and at n = 1,024 with E = 8, every engine bit-exact
                with the dense tick on the card; beside them, each in a fresh
-               process, ``python -m kaboodle_tpu_torch.analysis --ir`` (the
-               KB405 exercise on the card against the committed
-               ``surface.json``) and ``--rng`` (the STREAM_* register), each
-               exit 0. Default ``SwimConfig``: no
+               process, ``python -m kaboodle_tpu_torch.analysis --ir
+               --entries ops.fused_fp`` (the KB405 exercise on the card
+               against the committed ``surface.json``, one traced entry) and
+               ``--rng --entries ops.crc32`` (the STREAM_* register, one
+               traced entry; the whole registry is phase 33's), each exit 0.
+               Default ``SwimConfig``: no
                hand kernel runs (the ``use_pallas_*`` flags are off, as in
                the JAX CLI), so the in-process runs count 0 launches.
 
@@ -255,13 +258,29 @@ script exits non-zero without the result line:
                crosses a link, so the ring bytes are 0) and ``costscope
                --report`` with the ``churn`` phase's wall as its one
                ``--walls`` line (the ``tick.faulty`` placement).
+33. analysis -- (run right after ``costscope``) the traced analysis lanes
+               on the card: ``run_scan`` (KB401-KB404 over the dispatch
+               trace, ``analysis/ir/``) and ``run_rng_scan`` (KB601-KB605
+               over the key provenance recorded at the counter-RNG calls,
+               ``analysis/rng/``) over the registry's 31 entries, each
+               entry run as it is and with every device gate forced each
+               way, the sharded ones on a one-rank NCCL group made here.
+               The finding keys and the KB402 counts by site equal the
+               committed baselines, the leap report the committed
+               ``analysis/rng/leap.json``; K1-K4 must launch. Then one
+               dense churn tick at full width (the ``churn`` run's final
+               N = 8,192 state through the ``phasegraph.tick.faulty``
+               build): its KB401-KB404 keys and its sinks equal the N = 32
+               entry's, shapes scaled to N (one sink for the drop draw's
+               16 row chunks). Prints the KB402 host syncs per call of
+               each tick entry and of the full-width tick.
 
 Launch counts are reset just before each main-path run (boot, churn, the
 two telemetry runs, the sharded churn ticks and the sharded boot, the facade at capacity 8,192, the checkpoint's
 resumed ticks, the two blocked runs, the two fleet runs, the warp runs,
 the two serve runs, the sharded serve runs, the oracle parity, the serve drivers, the two
-sparse runs, the in-process command-line runs, the costscope entries' card runs and the
-stage cuts' timed ticks) and read
+sparse runs, the in-process command-line runs, the costscope entries' card runs, the
+stage cuts' timed ticks and the analysis phase's registry and full-width runs) and read
 just after: each kernel of the dense path
 must have launched; the blocked tick, the fleet, the leaps, the serve
 step and the sparse tick run no kernel (as in the JAX package, whose fleet
@@ -962,12 +981,14 @@ def counts() -> dict:
 # N = 8,192 full state and the N = 1,024 full state of the warp drain.
 SHAPE_RUNS = {
     "boot": ("boot", "telemetry_boot", "warp_window_dense", "sharded_boot"),
-    "churn": ("churn", "telemetry_churn", "facade", "checkpoint_resume", "sharded_churn"),
+    "churn": ("churn", "telemetry_churn", "facade", "checkpoint_resume", "sharded_churn",
+              "analysis_full"),
     "row_slice": (),
-    "churn_final_state": ("churn", "telemetry_churn", "facade", "checkpoint_resume"),
+    "churn_final_state": ("churn", "telemetry_churn", "facade", "checkpoint_resume",
+                          "analysis_full"),
     "warp_drain": ("warp_drain_churn", "warp_drain_dense", "warp_drain_warp", "warp_drain_bank",
                    "warp_drain_distributional"),
-    "costscope": ("costscope",),
+    "costscope": ("costscope", "analysis"),
 }
 # The kernels each main-path run must launch: the boot's lean state hashes
 # a precomputed record vector (K2), every full state its identity views (K1).
@@ -1945,9 +1966,15 @@ def phase_fleet_parity(boot_res, sweep_res, sweep_line) -> dict:
 WINDOW_N = 16384
 WINDOW_K = 256
 # BENCH_warp3.json's drain: N = 1,024 (churn half, calm half), cut from its
-# 8,192 ticks to 4,096 when the sharded phase took the smoke past its budget.
+# 8,192 ticks to 4,096 when the sharded phase took the smoke past its budget;
+# then its churn half (quiet but for the kills at its two ends) to its last
+# 512 ticks, when the analysis phase did: 2,560 ticks, the calm half's 2,048
+# and its 682-tick ping timeout as before. A shorter calm half does not
+# drain: at 1,024 calm ticks the victims are not all removed, and no tick
+# leaps.
 DRAIN_N = 1024
-DRAIN_TICKS = 4096
+DRAIN_TICKS = 2560
+DRAIN_CHURN = 512
 WARP_FLEET_N = 1024
 WARP_FLEET_TICKS = 512
 # Members of the warped fleet: converged, mid-drain, mid-boot.
@@ -2067,15 +2094,17 @@ def phase_warp_window() -> dict:
     return out
 
 
-def warp_drain_case(n: int = DRAIN_N, ticks: int = DRAIN_TICKS, device="cuda"):
+def warp_drain_case(n: int = DRAIN_N, ticks: int = DRAIN_TICKS, device="cuda",
+                    churn_ticks: int | None = None):
     """BENCH_warp3.json's churn-recovery drain (bench.py
     ``_bench_warp_churn_recovery``) as ``(cfg, state, churn_inputs,
     calm_inputs)``: a converged full-state mesh, 8 staggered kills at the
     tail of the churn half plus one early kill and revive, and a suspicion
-    timeout of a third of the calm half; all kernel flags on."""
+    timeout of a third of the calm half; all kernel flags on. The churn
+    half is the first ``churn_ticks`` (default: half the ticks)."""
     from kaboodle_tpu_torch.sim import Scenario, init_state
 
-    churn_end = ticks // 2
+    churn_end = ticks // 2 if churn_ticks is None else churn_ticks
     cfg = dataclasses.replace(all_kernels_cfg(),
                               ping_timeout_ticks=max(8, (ticks - churn_end) // 3))
     st = init_state(n, seed=0, ring_contacts=n - 1, announced=True, device=device)
@@ -2132,7 +2161,7 @@ def phase_warp_drain() -> dict:
     from kaboodle_tpu_torch.warp.runner import SpanMemo, WarpLedger, leap_cache, simulate_warped
 
     release_device_memory()
-    cfg, st, churn_in, calm_in = warp_drain_case(DRAIN_N, DRAIN_TICKS)
+    cfg, st, churn_in, calm_in = warp_drain_case(DRAIN_N, DRAIN_TICKS, churn_ticks=DRAIN_CHURN)
     calm_ticks = int(calm_in.kill.shape[0])
     torch.cuda.reset_peak_memory_stats()
     (st_c, _), churn_wall, l_churn = timed(lambda: simulate(st, churn_in, cfg, faulty=True))
@@ -2156,7 +2185,8 @@ def phase_warp_drain() -> dict:
     bad = {name: state_diff(out_d, o) for name, o in
            (("warp", out_w), ("bank", out_b), ("replay", out_m))}
     steady = {"dense": steady_mean(out_d, cfg), "distributional": steady_mean(out_x, cfg)}
-    out = {"phase": "warp_drain", "n": DRAIN_N, "ticks": DRAIN_TICKS, "calm_ticks": calm_ticks,
+    out = {"phase": "warp_drain", "n": DRAIN_N, "ticks": DRAIN_TICKS, "churn_ticks": DRAIN_CHURN,
+           "calm_ticks": calm_ticks,
            "ping_timeout_ticks": cfg.ping_timeout_ticks,
            "churn_wall_s": churn_wall, "dense_wall_s": dense_wall,
            "dense_ms_per_tick": 1e3 * dense_wall / calm_ticks, "warp_wall_s": warp_wall,
@@ -3444,11 +3474,13 @@ def phase_cli(device="cuda") -> dict:
     dev_args = [] if device == "cuda" else ["--device", device]
     # The analysis lanes, each a fresh process (the committed surface counts
     # are a fresh process's), run beside the rest of the phase: KB405 on
-    # ``device`` against the committed budget, and the STREAM_* register.
+    # ``device`` against the committed budget, and the STREAM_* register,
+    # each with one traced entry (the whole registry is phase 33's).
     lanes = {name: (time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "kaboodle_tpu_torch.analysis", *argv], cwd=ROOT, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-        for name, argv in (("analysis_ir", ["--ir", *dev_args]), ("analysis_rng", ["--rng"]))}
+        for name, argv in (("analysis_ir", ["--ir", "--entries", "ops.fused_fp", *dev_args]),
+                           ("analysis_rng", ["--rng", "--entries", "ops.crc32", *dev_args]))}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "kaboodle_tpu_torch", *sim, *dev_args],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -3646,6 +3678,138 @@ def phase_costscope(churn=None, device="cuda") -> dict:
     return out
 
 
+# The full-width tick of the analysis phase: the registry's dense faulty
+# tick (``phasegraph.tick.faulty``, kernel flags on) on the churn's state.
+ANALYSIS_FULL_ENTRY = "phasegraph.tick.faulty"
+
+
+def analysis_lanes(device) -> dict:
+    """The traced lanes over the whole registry on ``device`` (one trace read
+    by both; the sharded entries on the process's group): ``{"ir": finding
+    keys, "rng": finding keys, "counts": KB402 syncs per run by key,
+    "leap": report, "results": trace_registry's dict, "ir_findings",
+    "rng_findings", "graphs"}``."""
+    from kaboodle_tpu_torch.analysis.ir.registry import ENTRY_POINTS
+    from kaboodle_tpu_torch.analysis.ir.scan import run_scan, trace_registry
+    from kaboodle_tpu_torch.analysis.rng import scan as rng_scan
+    from kaboodle_tpu_torch.costscope.baseline import DEFAULT_BASELINE as COSTSCOPE
+
+    results = trace_registry(ENTRY_POINTS, device, rng=True)
+    ir = run_scan(entries=ENTRY_POINTS, device=device, with_surface=False, results=results)
+    rng = rng_scan.run_rng_scan(entries=ENTRY_POINTS, results=results)
+    return {"ir": sorted({f.key for f in ir.findings}),
+            "rng": sorted({f.key for f in rng.findings}),
+            "counts": {k: list(v) for k, v in sorted(ir.counts.items())},
+            "leap": rng_scan.build_leap_report(rng.graphs, costscope_path=COSTSCOPE),
+            "results": results, "ir_findings": ir.findings, "rng_findings": rng.findings,
+            "graphs": rng.graphs}
+
+
+def phase_analysis(churn_final=None, device="cuda") -> dict:
+    """The traced analysis lanes on the card (phase 33): ``run_scan``
+    (KB401-KB404) and ``run_rng_scan`` (KB601-KB605) over all 31 registry
+    entries on the card, the sharded ones on a one-rank NCCL group made
+    here. The finding keys and the KB402 counts by site must equal the
+    committed baselines (``kaboodle_tpu_torch/analysis/{ir,rng}/
+    baseline.json``), the leap report the committed
+    ``analysis/rng/leap.json``: the records that the CPU tests hold equal
+    to the CPU's trace (``tests/test_torch_graftscan.py``,
+    ``test_torch_keyscope.py``), so the card gives the CPU's findings
+    without a second trace here. K1-K4 must launch. Then one dense churn tick at full width (``churn_final``,
+    config 3's N = 8,192 state; run here when not given) through the
+    ``phasegraph.tick.faulty`` build: its KB401-KB404 keys and its sink
+    list must be the N = 32 entry's, shapes scaled to N (one sink per draw
+    however many row chunks the draw takes)."""
+    import torch
+    import torch.distributed as dist
+
+    from kaboodle_tpu_torch.analysis.core import load_baseline, load_counts
+    from kaboodle_tpu_torch.analysis.ir.registry import ENTRY_POINTS
+    from kaboodle_tpu_torch.analysis.ir.scan import read_entry
+    from kaboodle_tpu_torch.analysis.rng import scan as rng_scan
+    from kaboodle_tpu_torch.ops import _cuda
+    from kaboodle_tpu_torch.parallel import make_mesh
+    from kaboodle_tpu_torch.sim.state import idle_inputs
+
+    if churn_final is None:
+        churn_final = to_host(phase_churn()[1])
+    release_device_memory()
+    t_phase = time.perf_counter()
+    card = card_line()
+    committed = {lane: sorted(load_baseline(
+        ROOT / f"kaboodle_tpu_torch/analysis/{lane}/baseline.json")) for lane in ("ir", "rng")}
+    committed_leap = rng_scan.load_leap_report(ROOT / rng_scan.DEFAULT_LEAP_REPORT)
+    committed_counts = {k: list(v) for k, v in sorted(load_counts(
+        ROOT / "kaboodle_tpu_torch/analysis/ir/baseline.json").items())}
+    mesh = make_mesh(device=device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    lanes = analysis_lanes(device)
+    torch.cuda.synchronize()
+    t_registry = time.perf_counter() - t0
+    launches = counts()
+    dist.destroy_process_group()
+    del mesh
+
+    # One dense churn tick at full width, the N = 32 entry's build.
+    (entry,) = [e for e in ENTRY_POINTS if e.name == ANALYSIS_FULL_ENTRY]
+    st = dataclasses.replace(churn_final, **{
+        f.name: getattr(churn_final, f.name).to(device)
+        for f in dataclasses.fields(churn_final) if getattr(churn_final, f.name) is not None})
+    n = st.n
+    full_entry = dataclasses.replace(
+        entry, build=lambda dev=None: (entry.build(dev)[0], (st, idle_inputs(n, device=dev))))
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    full = read_entry(full_entry, device, rng=True)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    full_launches = counts()
+    del st, full_entry
+
+    small = lanes["results"][ANALYSIS_FULL_ENTRY]
+    strip = lambda fs: sorted({f.key.split("::", 1)[1] for f in fs})  # noqa: E731
+    scale = n // 32
+    want_sinks = sorted((s.descr(), tuple(d * scale if d == 32 else d for d in s.shape))
+                        for s in small.graph.sinks)
+    got_sinks = sorted((s.descr(), tuple(s.shape)) for s in full.graph.sinks)
+    by_rule: dict[str, int] = {}
+    for f in (*lanes["ir_findings"], *lanes["rng_findings"]):
+        by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    equal = {"keys_vs_committed": [lanes["ir"], lanes["rng"]] == [committed["ir"],
+                                                                  committed["rng"]],
+             "counts_vs_committed": lanes["counts"] == committed_counts,
+             "leap_vs_committed": lanes["leap"] == committed_leap}
+    full_out = {"entry": ANALYSIS_FULL_ENTRY, "n": n, "kb402_syncs_per_call": full.syncs,
+                "keys_equal_n32": strip(full.findings) == strip(small.findings),
+                "sinks": [f"{d} {list(s)}" for d, s in got_sinks],
+                "sinks_equal_n32_scaled": got_sinks == want_sinks, "launches": full_launches}
+    out = {"analysis": {
+        "phase": "analysis", "card": card, "seconds": time.perf_counter() - t_phase,
+        "registry_s": t_registry, "full_width_s": t_full,
+        "findings_by_rule": by_rule, "equal": equal,
+        "kb402_syncs_per_call": {name: r.syncs for name, r in lanes["results"].items()
+                                 if name.startswith(("phasegraph.tick", "phasegraph.serve",
+                                                     "sim."))},
+        "sinks": {name: sorted(f"{s.descr()} {list(s.shape)}" for s in g.sinks)
+                  for name, g in lanes["graphs"].items() if g.sinks},
+        "full_width": full_out, "launches": launches}}
+    emit(out)
+    if not all(equal.values()):
+        raise AssertionError(
+            f"analysis: the card's lanes differ from the committed records: {equal}; ir "
+            f"{sorted(set(lanes['ir']) ^ set(committed['ir']))} rng "
+            f"{sorted(set(lanes['rng']) ^ set(committed['rng']))} counts "
+            f"{[k for k in committed_counts if lanes['counts'].get(k) != committed_counts[k]]}")
+    if not (full_out["keys_equal_n32"] and full_out["sinks_equal_n32_scaled"]):
+        raise AssertionError(f"analysis: the N = {n} tick differs from the N = 32 entry: "
+                             f"{strip(full.findings)} vs {strip(small.findings)}; "
+                             f"{got_sinks} vs {want_sinks}")
+    require_launches("analysis", launches, _cuda.KERNELS)
+    require_launches("analysis full width", full_launches, CHURN_KERNELS)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3679,6 +3843,7 @@ def main() -> int:
     phase_parity()
     facade = phase_facade()
     ckpt = phase_checkpoint(final)
+    churn_final = final  # on the host: the analysis phase's full-width tick
     del final
     phase_chunked_parity()
     cboot = phase_chunked_boot()
@@ -3700,6 +3865,8 @@ def main() -> int:
     sparse_boot = phase_sparse_boot()
     cli_out = phase_cli()
     cs = phase_costscope(churn)
+    an = phase_analysis(churn_final)["analysis"]
+    del churn_final
     # The blocked tick, the fleet, the leaps, the serve step and the sparse
     # tick run no kernel (as in the JAX package), nor does the command line
     # at its default config (no kernel flag, as in the JAX CLI): their runs
@@ -3724,7 +3891,8 @@ def main() -> int:
             "serve_chaos": schaos["launches"], "serve_obs": sobs["launches"],
             "sparse_parity": sparse_par["launches"], "sparse_boot": sparse_boot["launches"],
             **cli_out["launches"], "costscope": cs["launches"],
-            "stage_cuts": cuts["launches"]}
+            "stage_cuts": cuts["launches"], "analysis": an["launches"],
+            "analysis_full": an["full_width"]["launches"]}
 
     rows = kern["rows"] + churn_state["rows"]
     cases = kern["cases"] + churn_state["cases"]

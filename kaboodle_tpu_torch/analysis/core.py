@@ -1,32 +1,34 @@
-"""graftconc core: findings, the rule registry, noqa and baseline plumbing.
+"""graftlint core: findings, the rule registry, noqa and baseline plumbing.
 
-The port of the parts of ``kaboodle_tpu/analysis/core.py`` that the
-concurrency lane (KB501-KB506, ``analysis/conc/rules.py``) uses.
-Dependency-free by construction (``ast`` + stdlib only): the analyzer never
-imports torch, so the lane runs at parse speed and needs no device.
+The port of ``kaboodle_tpu/analysis/core.py``, shared by every lane of
+``python -m kaboodle_tpu_torch.analysis``. Dependency-free by construction
+(``ast`` + stdlib only): the AST lanes never import torch -- rules that
+reason about per-tick code do so syntactically (``reach.py``) -- so they
+run at parse speed and need no device.
 
 Vocabulary:
 
-- A **rule** has a stable id (``KB5xx``), a one-line title, and an
-  ``--explain`` text that says what it catches, why it matters here, and
-  how to suppress it.
+- A **rule** has a stable id (``KB1xx`` generic, ``KB2xx`` the torch
+  meanings of the JAX tracer rules, ``KB3xx`` hot-path, ``KB4xx`` the IR
+  lane over the dispatch trace, ``KB5xx`` concurrency, ``KB6xx`` key
+  provenance), a one-line title, and an ``--explain`` text that says what
+  it catches, why it matters here, and how to suppress it.
 - A **finding** is one diagnostic. Its ``key`` (path :: rule :: symbol --
   deliberately *no line number*, so baselines survive unrelated edits) is
   what the baseline file matches against.
 - ``# noqa`` on the offending line suppresses findings there: bare ``noqa``
   (or a foreign-linter code list like ``# noqa: E731``) suppresses
-  everything on the line, while ``# noqa: KB503`` suppresses only the
+  everything on the line, while ``# noqa: KB203`` suppresses only the
   named rules.
-- The **baseline** (``analysis/conc/baseline.json``) holds pre-existing,
-  justified findings so the gate fails on *new* debt only; every entry
-  must carry a non-empty ``reason``. ``--no-baseline-growth`` also fails
-  on stale entries, so the file can only shrink.
-
-The JAX package's AST, IR and rng lanes check jit tracing, which the port
-does not do: their rules and its ``reach.py`` tracer analysis are not
-ported. :class:`FunctionIndex` keeps the one part of ``reach.py`` the conc
-rules read: every function of a module by node and by name, with its
-qualified name.
+- A **baseline** holds pre-existing, justified findings so the gate fails
+  on *new* debt only; every entry must carry a non-empty ``reason``.
+  ``--no-baseline-growth`` also fails on stale entries, so the file can
+  only shrink. Each lane has its own, inside the port:
+  ``analysis/baseline.json`` (AST), ``analysis/ir/baseline.json``,
+  ``analysis/rng/baseline.json`` and ``analysis/conc/baseline.json``.
+  The AST and IR baselines also record each entry's ``count`` (how often
+  the finding occurs; KB402: the syncs per call), and a count that rises
+  fails the lane (:func:`count_findings`).
 """
 
 from __future__ import annotations
@@ -104,36 +106,6 @@ def noqa_codes(line: str) -> frozenset[str]:
     return kb or _ALL
 
 
-@dataclasses.dataclass
-class FuncInfo:
-    node: ast.FunctionDef | ast.AsyncFunctionDef
-    qualname: str
-
-
-class FunctionIndex:
-    """Every ``def`` of a module: ``by_node`` (node -> FuncInfo) and
-    ``by_name`` (bare name -> [FuncInfo]), qualnames dotted through the
-    enclosing classes and functions."""
-
-    def __init__(self, tree: ast.AST):
-        self.by_node: dict[ast.AST, FuncInfo] = {}
-        self.by_name: dict[str, list[FuncInfo]] = {}
-        self._collect(tree, "")
-
-    def _collect(self, node: ast.AST, prefix: str) -> None:
-        for child in ast.iter_child_nodes(node):
-            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
-                qual = f"{prefix}{child.name}"
-                info = FuncInfo(child, qual)
-                self.by_node[child] = info
-                self.by_name.setdefault(child.name, []).append(info)
-                self._collect(child, qual + ".")
-            elif isinstance(child, ast.ClassDef):
-                self._collect(child, f"{prefix}{child.name}.")
-            else:
-                self._collect(child, prefix)
-
-
 class Module:
     """Parsed source handed to every rule, with shared per-file analyses.
 
@@ -178,9 +150,12 @@ class Module:
         return ".".join(reversed(parts))
 
     @property
-    def reach(self) -> FunctionIndex:
+    def reach(self):
+        """The module's functions and which of them are hot (``reach.py``)."""
         if self._reach is None:
-            self._reach = FunctionIndex(self.tree)
+            from kaboodle_tpu_torch.analysis import reach
+
+            self._reach = reach.ReachInfo(self)
         return self._reach
 
     def suppressed(self, rule_id: str, lineno: int) -> bool:
@@ -231,14 +206,26 @@ def iter_python_files(targets: list[str]) -> list[pathlib.Path]:
 
 
 def _load_rules() -> None:
-    """Import the rule modules (idempotent) so REGISTRY is populated: the
-    conc rules KB501-KB506 and the documentation of KB405 and KB601-KB605."""
-    from kaboodle_tpu_torch.analysis import rules_ir, rules_rng  # noqa: F401
+    """Import the rule modules (idempotent) so REGISTRY is populated.
+
+    rules_ir and rules_rng register the KB4xx/KB6xx documentation with
+    no-op source checks (their passes run over the dispatch trace behind
+    ``--ir``/``--rng``); the conc rules (KB5xx) register here too, and the
+    CLI runs them only in the ``--conc`` lane."""
+    from kaboodle_tpu_torch.analysis import (  # noqa: F401
+        rules_generic,
+        rules_hotpath,
+        rules_ir,
+        rules_jax,
+        rules_rng,
+    )
     from kaboodle_tpu_torch.analysis.conc import rules as rules_conc  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
 # baseline
+
+DEFAULT_BASELINE = "kaboodle_tpu_torch/analysis/baseline.json"
 
 
 class BaselineError(ValueError):
@@ -268,17 +255,70 @@ def load_baseline(path: pathlib.Path) -> dict[str, str]:
     return out
 
 
-def write_baseline(path: pathlib.Path, findings: list[Finding], old: dict[str, str]) -> None:
-    """Regenerate the baseline from current findings, keeping old reasons."""
+def load_counts(path: pathlib.Path) -> dict[str, tuple[int, ...]]:
+    """key -> the ``count`` recorded beside it (how many times the finding
+    occurs: a list of ints, one per run the lane makes); entries without
+    one are absent. Call after :func:`load_baseline` has validated the file."""
+    if not path.exists():
+        return {}
+    out: dict[str, tuple[int, ...]] = {}
+    for e in json.loads(path.read_text())["entries"]:
+        if "count" not in e:
+            continue
+        c = e["count"]
+        if not (isinstance(c, list) and c and all(isinstance(x, int) for x in c)):
+            raise BaselineError(f"{path}: entry {e['key']!r}: 'count' must be a list of ints")
+        out[str(e["key"])] = tuple(c)
+    return out
+
+
+def count_findings(measured: dict[str, tuple[int, ...]], recorded: dict[str, tuple[int, ...]],
+                   baseline: dict[str, str], no_growth: bool) -> list[Finding]:
+    """The counts of baselined findings against those recorded beside them.
+
+    A key is line-free, so a second host sync in a function that already
+    has a baselined one makes no new key: only its count rises. A rise (or
+    a baselined key with no recorded count) is a finding that no baseline
+    entry suppresses; a fall fails under ``no_growth``, so the counts, like
+    the entries, only shrink."""
+    out = []
+    for key, got in sorted(measured.items()):
+        if key not in baseline:
+            continue  # a finding of its own already
+        path, rule, symbol = key.split("::", 2)
+        want = recorded.get(key)
+        if want is None:
+            tag, msg = "count-missing", "has no recorded count"
+        elif len(got) != len(want) or any(g > w for g, w in zip(got, want)):
+            tag, msg = "count-rose", f"rose to {list(got)} from the recorded {list(want)}"
+        elif got != want and no_growth:
+            tag, msg = "count-fell", f"fell to {list(got)} from the recorded {list(want)}"
+        else:
+            continue
+        out.append(Finding(path, rule, 0, f"{symbol}: the baselined finding's count {msg} "
+                           "-- rewrite the baseline (--write-baseline) once it is justified",
+                           f"{symbol}:{tag}"))
+    return out
+
+
+def write_baseline(path: pathlib.Path, findings: list[Finding], old: dict[str, str],
+                   counts: dict[str, tuple[int, ...]] | None = None) -> None:
+    """Regenerate the baseline from current findings, keeping old reasons and
+    the file's comment; ``counts`` are recorded beside their keys."""
     keys = sorted({f.key for f in findings})
+    comment = (
+        "baseline: pre-existing, justified findings. Entries may "
+        "only be removed (fix the finding, delete the entry); the "
+        "--no-baseline-growth gate fails on stale or new entries."
+    )
+    if path.exists():
+        comment = json.loads(path.read_text()).get("comment", comment)
+    counts = counts or {}
     payload = {
-        "comment": (
-            "graftconc baseline: pre-existing, justified findings. Entries may "
-            "only be removed (fix the finding, delete the entry); the "
-            "--no-baseline-growth gate fails on stale or new entries."
-        ),
+        "comment": comment,
         "entries": [
-            {"key": k, "reason": old.get(k, "TODO: justify this exemption")} for k in keys
+            {"key": k, "reason": old.get(k, "TODO: justify this exemption"),
+             **({"count": list(counts[k])} if k in counts else {})} for k in keys
         ],
     }
     path.write_text(json.dumps(payload, indent=2) + "\n")

@@ -45,13 +45,17 @@ KERNEL_FLAGS = dict(use_pallas_fp=True, use_pallas_oldest_k=True, use_pallas_sus
 class EntryPoint:
     """One program entry point: ``build(device) -> (fn, example_args)``.
 
-    ``lean`` marks the int16-timer programs, ``sharded`` the programs over
-    a process group (their records carry the collectives' bytes)."""
+    ``lean`` marks the int16-timer programs (KB401's widening pass),
+    ``sharded`` the programs over a process group (their records carry the
+    collectives' bytes; KB404). ``const_budget_bytes`` is KB403's threshold
+    for a tensor made from host data inside the call, the JAX registry's:
+    4,096 bytes, 2,048 for ``ops.crc32``."""
 
     name: str
     build: Callable[..., tuple[Callable, tuple]]
     lean: bool = False
     sharded: bool = False
+    const_budget_bytes: int = 4096
 
 
 def _cfg(kernels: bool = False, **kw):
@@ -528,7 +532,7 @@ ENTRY_POINTS: tuple[EntryPoint, ...] = (
     EntryPoint("ops.fused_fp", _ops_fused_fp),
     EntryPoint("ops.fused_oldest_k", _ops_fused_oldest_k),
     EntryPoint("ops.fused_suspicion", _ops_fused_suspicion),
-    EntryPoint("ops.crc32", _ops_crc32),
+    EntryPoint("ops.crc32", _ops_crc32, const_budget_bytes=2048),
 )
 
 

@@ -89,7 +89,7 @@ def membership_crc32(member: torch.Tensor, identities: torch.Tensor) -> torch.Te
     ``generate_fingerprint``, kaboodle.rs:71-83). Walks the peer axis, so
     O(N) steps; returns int64 ``[N]`` unsigned values."""
     n = member.shape[-1]
-    recs = record_bytes(torch.arange(n, device=member.device), identities)  # [N, 8]
+    recs = record_bytes(torch.arange(n, device=member.device, dtype=torch.int64), identities)  # [N, 8]
     s = torch.full((member.shape[0],), 0xFFFFFFFF, dtype=torch.int64, device=member.device)
     for j in range(n):
         mask = member[:, j, None].expand(-1, 8)

@@ -94,7 +94,7 @@ def membership_fingerprint(member: torch.Tensor, identities: torch.Tensor) -> to
         elif h_mesh.shape[0] == 1:
             h = h_mesh
         else:
-            mesh = torch.arange(r0, r1, device=member.device) // n_rows
+            mesh = torch.arange(r0, r1, device=member.device, dtype=torch.int64) // n_rows
             h = h_mesh[mesh]
         out[r0:r1] = wrap_sum(torch.where(rows[r0:r1], h, zero))
     return out.view(*batch, n_rows)

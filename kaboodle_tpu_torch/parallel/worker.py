@@ -578,6 +578,25 @@ def _case_costscope(case, mesh_unused, dev) -> dict:
     return {"arrays": arrays, "digest": {"records": records}}
 
 
+def _case_analysis(case, mesh_unused, dev) -> dict:
+    """``analysis``: registry entries (the sharded ones over every rank)
+    traced and read by the IR lane (``analysis/ir/scan.py::read_entry``),
+    each rank's own findings and host syncs per call (in all and by site);
+    with ``rng``, each entry's key-provenance graph too."""
+    from kaboodle_tpu_torch.analysis.ir.registry import select_entries
+    from kaboodle_tpu_torch.analysis.ir.scan import read_entry
+    from kaboodle_tpu_torch.analysis.rng.provenance import graph_to_dict
+
+    entries = {}
+    for entry in select_entries(case["entries"]):
+        res = read_entry(entry, dev, rng=bool(case.get("rng")))
+        entries[entry.name] = {
+            "findings": [dataclasses.asdict(f) for f in res.findings], "syncs": res.syncs,
+            "counts": {k: list(v) for k, v in res.counts.items()},
+            "graph": graph_to_dict(res.graph) if res.graph is not None else None}
+    return {"digest": {"entries": entries}}
+
+
 KINDS = {
     "simulate": _case_simulate,
     "converge": _case_converge,
@@ -592,6 +611,7 @@ KINDS = {
     "shardpool_spill": _case_shardpool_spill,
     "fedload": _case_fedload,
     "costscope": _case_costscope,
+    "analysis": _case_analysis,
 }
 
 

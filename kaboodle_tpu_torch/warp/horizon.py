@@ -134,7 +134,7 @@ def make_quiescence_fn(cfg: SwimConfig):
     def quiescent(st: MeshState) -> torch.Tensor:
         S, alive = st.state, st.alive
         nb = S.dim() - 2
-        idx = torch.arange(st.n, device=S.device)
+        idx = torch.arange(st.n, device=S.device, dtype=torch.int64)
         eye = idx[:, None] == idx[None, :]
         member = S > 0
         arow = alive[..., :, None]
@@ -296,7 +296,7 @@ def make_signature_fn(cfg: SwimConfig, group=None):
         nb = S.dim() - 2
         dev = S.device
         row0, nr = C.row_range(st.n, group)
-        idx = torch.arange(st.n, device=dev)
+        idx = torch.arange(st.n, device=dev, dtype=torch.int64)
         eye = idx[row0:row0 + nr, None] == idx[None, :]
         member = S > 0
         ident_g, alive_g = C.gather_many([st.identity, alive], group, nb)

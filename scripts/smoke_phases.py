@@ -7,8 +7,8 @@ Builds the hand kernels (``ops/_cuda.py``), then calls each named phase
 function of ``chip_smoke.py`` (``oracle_parity``, ``serve_load``,
 ``fed_serve``, ``serve_chaos_obs``, ``sparse_parity``, ``sparse_boot``,
 ``cli``, ``shard_serve``, ``costscope`` (which runs ``churn`` first for its wall),
-``kernels``, ``stage_cuts`` (which runs ``churn`` first for its state); default: all
-eleven) with its defaults. Each phase prints its own JSON line; after it this prints
+``kernels``, ``stage_cuts`` and ``analysis`` (each runs ``churn`` first for its
+state), ``warp_drain``; default: all thirteen) with its defaults. Each phase prints its own JSON line; after it this prints
 ``PHASE <name> <seconds>``, or the traceback and goes on to the next. Prints the card line first, and exits
 non-zero if any phase failed. A quick check of those phases, and a timing
 probe of their sizes, without the rest of the smoke. Needs a CUDA card
@@ -24,7 +24,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PHASES = ("oracle_parity", "serve_load", "fed_serve", "serve_chaos_obs", "sparse_parity",
-          "sparse_boot", "cli", "shard_serve", "costscope", "kernels", "stage_cuts")
+          "sparse_boot", "cli", "shard_serve", "costscope", "kernels", "stage_cuts",
+          "analysis", "warp_drain")
 
 
 def main(argv=None) -> int:

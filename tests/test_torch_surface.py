@@ -4,7 +4,8 @@ KB405: the JAX package's gate semantics and budget-file cases
 (tests/test_graftscan.py) on the port's ``analysis/ir/surface.py``, a
 seeded mutation that grows a family (a spurious per-call cache key, after
 the JAX package's spurious static argument), and ``python -m
-kaboodle_tpu_torch.analysis --ir --device cpu`` in fresh processes: 0 on
+kaboodle_tpu_torch.analysis --ir --device cpu`` in fresh processes (the
+trace scoped to one cheap entry: KB401-KB404 have their own file) -- 0 on
 the committed ``surface.json``, 1 with a leap cache keyed per call. KB602:
 the JAX package's registry cases (tests/test_keyscope.py) on the port's
 ``analysis/rng/rules.py``, whose pinned table must equal the JAX lane's.
@@ -41,7 +42,8 @@ runner._get_fleet_leap = mutated
 
 
 def _ir_process(prelude: str):
-    code = _IR + prelude + "sys.exit(main(['--ir', '--device', 'cpu']))\n"
+    code = _IR + prelude + ("sys.exit(main(['--ir', '--device', 'cpu', "
+                            "'--entries', 'ops.fused_fp']))\n")
     return subprocess.Popen([sys.executable, "-c", code], cwd=str(REPO), text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
@@ -160,20 +162,21 @@ def test_surface_file_roundtrip(tmp_path):
 
 
 def test_ir_lane_flags_and_usage(tmp_path, capsys):
-    # --no-surface runs nothing; a malformed budget file is a usage error.
-    assert cli.main(["--ir", "--no-surface"]) == 0
+    # --no-surface runs the trace alone; a malformed budget file is a usage error.
+    assert cli.main(["--ir", "--no-surface", "--device", CPU, "--entries", "ops.fused_fp"]) == 0
     bad = tmp_path / "bad.json"
     bad.write_text("not json")
     assert cli.main(["--ir", "--surface", str(bad), "--device", CPU]) == 2
     for argv in (["--ir", "--write-surface", "--no-surface"], ["--ir", "some/path"],
-                 ["--ir", "--baseline", "x.json"], ["--ir", "--device"],
-                 ["--conc", "--device", CPU], ["--ir", "--rng"], ["--rng", "--no-baseline"]):
+                 ["--ir", "--leap", "x.json"], ["--ir", "--device"],
+                 ["--conc", "--device", CPU], ["--ir", "--rng"], ["--rng", "--surface", "x"],
+                 ["--ir", "--entries", "no.such.entry", "--device", CPU]):
         assert cli.main(argv) == 2, argv
     capsys.readouterr()
     assert cli.main(["--help"]) == 0
     help_text = capsys.readouterr().out
-    assert "KB401-KB404 walk jaxprs" in help_text
-    assert "KB601, KB603-KB605 and" in help_text and "KB602's traced half" in help_text
+    assert "KB401-KB404 over the dispatch trace" in help_text
+    assert "key provenance (keyscope, KB6xx)" in help_text
 
 
 # ---------------------------------------------------------------------------
@@ -217,18 +220,20 @@ def test_stream_registry_unpinned_stream_detected(monkeypatch):
 def test_rng_lane_exit_codes(monkeypatch, capsys):
     import kaboodle_tpu_torch.phasegraph.rng as pg_rng
 
-    assert cli.main(["--rng"]) == 0
-    assert cli.main(["rng"]) == 0
+    scoped = ["--device", CPU, "--entries", "ops.crc32"]
+    assert cli.main(["--rng", *scoped]) == 0
+    assert cli.main(["rng", *scoped]) == 0
     # Two ids swapped: the id set is unchanged, only the register sees it.
     monkeypatch.setattr(pg_rng, "STREAM_PING", pg_rng.STREAM_ACK)
     monkeypatch.setattr(pg_rng, "STREAM_ACK", 3)
-    assert cli.main(["--rng"]) == 1
+    assert cli.main(["--rng", *scoped]) == 1
     out = capsys.readouterr().out
     assert "drift:" not in out and "STREAM_PING is 4 live but pinned 3" in out
 
 
 def test_rng_lane_in_a_fresh_process():
-    out = subprocess.run([sys.executable, "-m", "kaboodle_tpu_torch.analysis", "--rng"],
+    out = subprocess.run([sys.executable, "-m", "kaboodle_tpu_torch.analysis", "--rng",
+                          "--device", CPU, "--entries", "ops.crc32"],
                          cwd=str(REPO), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "0 findings" in out.stderr
@@ -242,4 +247,4 @@ def test_rule_documentation_lists_the_new_lanes(capsys):
     assert cli.main(["--explain", "KB602"]) == 0
     assert "Registry" in capsys.readouterr().out
     assert cli.main(["--explain", "kb601"]) == 0
-    assert "no counterpart" in capsys.readouterr().out
+    assert "run by the rng lane" in capsys.readouterr().out
